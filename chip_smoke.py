@@ -6,16 +6,23 @@ Phases, each raising on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    no CUDA device means exit code 2 and no result;
-2. build: both CUDA kernels (top-k K1, group histogram K2) compile from
-   ``warpdb_tpu_torch/csrc`` with nvcc for sm_90a;
-3. kernels: each kernel against its plain PyTorch version on the card;
+2. build: all five CUDA kernels (top-k K1, group histogram K2, the join's
+   expansions K3 and K4 and its sorted gather K5) compile from
+   ``warpdb_tpu_torch/csrc`` with nvcc for sm_90a, in parallel;
+3. kernels: each kernel against its plain PyTorch version on the card,
+   K3-K5 bit for bit at the join's full sizes;
 4. slice: ``WarpDB(..., device="cuda")`` over bench.py's table (2^25
    rows, seed 12345) runs bench.py's query set and four more queries,
-   each checked against NumPy on the same arrays; both kernels' launch
+   each checked against NumPy on the same arrays; the K1 and K2 launch
    counters must rise during this phase;
-5. timing: median wall time of 5 warm runs per query, and each kernel's
-   time beside its plain version at the slice's shapes (CUDA events);
-6. with ``--profile`` only: one ``torch.profiler`` run per query (card
+5. joins: the same table joins bench.py's ``rates`` and ``dup`` and a
+   98K-row ``dimk`` (2^16 keys, each 0-3 times) through bench.py's join
+   queries and five more, each checked against NumPy; the K3, K4 and K5
+   launch counters must rise during this phase;
+6. timing: median wall time of 5 warm runs per query (joins with every
+   join memo off or dropped before the run), and each kernel's time
+   beside its plain version at the path's shapes (CUDA events);
+7. with ``--profile`` only: one ``torch.profiler`` run per query (card
    busy time, idle share, largest device items) and each kernel's
    registers and spills from ``ptxas -v``.
 
@@ -58,10 +65,52 @@ SQL_QUERIES = [
     ("filter_sql", "SELECT price FROM t WHERE price > 99.5"),
 ]
 
+# The join phase: bench.py's join queries (e2e_join, e2e_join_expand,
+# e2e_join_filtered) and more, as (name, SQL, eager join aggregation).
+# e2e_join's filter keeps 17 of the 32 rates, more than half, so the
+# build side is not filtered first and the join is a lookup;
+# e2e_join_semi's keeps 13, so the filtered build side leaves probe rows
+# unmatched and the join compacts the probe (K5).
+DIMK_KEYS = 1 << 16
+JOIN_QUERIES = [
+    ("e2e_join",
+     "SELECT price FROM t JOIN rates ON quantity = rates.quantity "
+     "WHERE rates.rate > 0.5 ORDER BY price DESC LIMIT 5", True),
+    ("e2e_join_semi",
+     "SELECT price FROM t JOIN rates ON quantity = rates.quantity "
+     "WHERE rates.rate > 0.6 ORDER BY price DESC LIMIT 5", True),
+    ("e2e_join_expand",
+     "SELECT SUM(price * dup.bonus) FROM t JOIN dup ON quantity = "
+     "dup.quantity GROUP BY quantity ORDER BY quantity ASC", False),
+    ("e2e_join_expand_eager",
+     "SELECT SUM(price * dup.bonus) FROM t JOIN dup ON quantity = "
+     "dup.quantity GROUP BY quantity ORDER BY quantity ASC", True),
+    ("e2e_join_filtered",
+     "SELECT SUM(price * rate) FROM t JOIN rates ON quantity = "
+     "rates.quantity WHERE price > 99 GROUP BY quantity ORDER BY quantity "
+     "ASC LIMIT 5", True),
+    ("join_dimk_sum",
+     "SELECT SUM(price * dimk.w) FROM t JOIN dimk ON k = dimk.k "
+     "GROUP BY quantity ORDER BY quantity ASC", False),
+    ("join_left_sum",
+     "SELECT SUM(price) FROM t LEFT JOIN dimk ON k = dimk.k "
+     "GROUP BY quantity ORDER BY quantity ASC", True),
+    ("join_left_count",
+     "SELECT COUNT(dimk.w) FROM t LEFT JOIN dimk ON k = dimk.k", True),
+]
+
+# What the join path memoises on a table instance (besides the join memo,
+# which ``join_cache_entries = 0`` turns off).
+JOIN_MEMOS = ("_prefilter_memo", "_count_memo", "_eja_memo")
+
 # f32 sums per group (2^20 rows per group for GROUP BY quantity, 512 for
-# GROUP BY k) add in a run-dependent order on the card; against a float64
-# sum the relative error stays far below this bound.
+# GROUP BY k, up to 2^21 joined rows per group in the join phase) add in
+# a run-dependent order on the card; against a float64 sum the relative
+# error stays below this bound.
 SUM_RTOL = 1e-4
+SUMS = {"group_sum", "group_sum_k", "e2e_join_expand",
+        "e2e_join_expand_eager", "e2e_join_filtered", "join_dimk_sum",
+        "join_left_sum"}
 
 
 def log(msg: str) -> None:
@@ -109,12 +158,69 @@ def expected(d: dict) -> dict:
     }
 
 
+def make_join_tables() -> dict:
+    """bench.py's ``rates`` and ``dup`` (bench.py:342-363, same seed and
+    order) and ``dimk``: 2^16 keys, each present 0-3 times, with a
+    weight ``w``."""
+    rng = np.random.default_rng(7)
+    rates = {
+        "quantity": np.arange(GROUP_SLOTS, dtype=np.float32),
+        "rate": rng.uniform(0.0, 1.0, GROUP_SLOTS).astype(np.float32),
+    }
+    dup = {
+        "quantity": np.tile(np.arange(GROUP_SLOTS, dtype=np.float32), 2),
+        "bonus": rng.uniform(0.0, 1.0, 2 * GROUP_SLOTS).astype(np.float32),
+    }
+    g = np.random.default_rng(SEED + 1)
+    reps = g.integers(0, 4, DIMK_KEYS)
+    dimk = {
+        "k": np.repeat(np.arange(DIMK_KEYS), reps).astype(np.float32),
+        "w": g.uniform(0.0, 1.0, int(reps.sum())).astype(np.float32),
+    }
+    return {"rates": rates, "dup": dup, "dimk": dimk}
+
+
+def expected_joins(d: dict, j: dict) -> dict:
+    p, q, k = d["price"], d["quantity"], d["k"]
+    qi, ki = q.astype(np.int64), k.astype(np.int64)
+    p64 = p.astype(np.float64)
+    rate = j["rates"]["rate"]
+    bonus = np.bincount(j["dup"]["quantity"].astype(np.int64),
+                        weights=j["dup"]["bonus"].astype(np.float64),
+                        minlength=GROUP_SLOTS)
+    dk = j["dimk"]["k"].astype(np.int64)
+    cnt = np.bincount(dk, minlength=DIMK_KEYS)
+    wsum = np.bincount(dk, weights=j["dimk"]["w"].astype(np.float64),
+                       minlength=DIMK_KEYS)
+
+    def top5(keep):
+        return np.sort(p[keep[qi]])[::-1][:5]
+
+    hot = p > np.float32(99)
+    filt = np.bincount(qi[hot], weights=(p64 * rate[qi])[hot],
+                       minlength=GROUP_SLOTS)
+    present = np.bincount(qi[hot], minlength=GROUP_SLOTS) > 0
+    expand = np.bincount(qi, weights=p64 * bonus[qi], minlength=GROUP_SLOTS)
+    return {
+        "e2e_join": top5(rate > np.float32(0.5)),
+        "e2e_join_semi": top5(rate > np.float32(0.6)),
+        "e2e_join_expand": expand,
+        "e2e_join_expand_eager": expand,
+        "e2e_join_filtered": filt[present][:5],
+        "join_dimk_sum": np.bincount(qi, weights=p64 * wsum[ki],
+                                     minlength=GROUP_SLOTS),
+        "join_left_sum": np.bincount(qi, weights=p64 * np.maximum(cnt[ki], 1),
+                                     minlength=GROUP_SLOTS),
+        "join_left_count": np.float32([cnt[ki].sum()]),
+    }
+
+
 def check(name: str, got, want) -> float:
     got = np.asarray(got, dtype=np.float64)
     want = np.asarray(want, dtype=np.float64)
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {got.shape} != {want.shape}")
-    if name in ("group_sum", "group_sum_k"):
+    if name in SUMS:
         np.testing.assert_allclose(got, want, rtol=SUM_RTOL, err_msg=name)
     else:
         np.testing.assert_array_equal(got, want, err_msg=name)
@@ -201,6 +307,101 @@ def phase_kernels(topk, group) -> dict:
     return err
 
 
+def _special_words(g, n: int) -> list:
+    """Three 4-byte columns: f32 with NaN payloads, ±inf and -0.0; a
+    full-range int32; a uniform f32 (the join's price)."""
+    f = g.normal(0, 1e10, n).astype(np.float32)
+    bits = f.view(np.uint32)
+    bits[1::97] = 0x7FC01234
+    bits[3::89] = 0xFF800001
+    f[5::83], f[7::79], f[9::73] = -np.inf, np.inf, -0.0
+    i = g.integers(-2**31, 2**31 - 1, n, dtype=np.int32)
+    i[0], i[1] = -2**31, 2**31 - 1
+    u = g.uniform(0, 100, n).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (f, i, u)]
+
+
+def _bit_err(got, want, what: str) -> float:
+    """Max |difference| of the int32 words; raises unless 0."""
+    err = 0.0
+    for a, b in zip(got, want):
+        wa, wb = a.view(torch.int32), b.view(torch.int32)
+        if a.dtype != b.dtype or not torch.equal(wa, wb):
+            raise AssertionError(f"{what}: differs from its plain version")
+        err = max(err, float((wa.to(torch.int64) - wb.to(torch.int64))
+                             .abs().max()) if wa.numel() else 0.0)
+    return err
+
+
+def phase_expand_kernels(expand) -> tuple:
+    """K3, K4 and K5 against their plain versions, bit for bit, at the
+    join's full sizes, and each timed beside its plain version."""
+    g = np.random.default_rng(8)
+    err = {"windowed_expand": 0.0, "uniform_expand": 0.0, "sorted_take": 0.0}
+    ms = {}
+    # K3: 2^25 probe rows, counts in {0..3}; the total is ragged.
+    counts = g.integers(0, 4, ROWS)
+    if counts.sum() % 2 == 0:
+        counts[-1] = 3 - counts[-1] % 2
+    offsets = torch.from_numpy(np.cumsum(counts) - counts).cuda()
+    total = int(counts.sum())
+    cols = _special_words(g, ROWS)
+    for owner in (True, False):
+        o, d, t = expand.windowed_expand(offsets, cols, total, owner=owner)
+        po, pd, pt = expand.windowed_expand_plain(offsets, cols, total, owner)
+        torch.cuda.synchronize()
+        err["windowed_expand"] = max(
+            err["windowed_expand"],
+            _bit_err(t + (d,) + ((o,) if owner else ()),
+                     pt + (pd,) + ((po,) if owner else ()), "K3"),
+        )
+    del o, d, t, po, pd, pt
+    log(f"K3 windowed_expand n={ROWS} total={total} C=3: owner, dup and "
+        f"columns equal to plain bit for bit")
+    ms["windowed_expand"] = paired_ms(
+        lambda: expand.windowed_expand(offsets, cols, total),
+        lambda: expand.windowed_expand_plain(offsets, cols, total),
+    ) + (f"n={ROWS} total={total} C=3",)
+    del offsets
+    # K4: 2^25 source rows, k = 2 and 3, ragged totals.
+    for k in (2, 3):
+        tot = ROWS * k - 5
+        got = expand.uniform_expand(cols, k, tot)
+        want = expand.uniform_expand_plain(cols, k, tot)
+        torch.cuda.synchronize()
+        err["uniform_expand"] = max(err["uniform_expand"],
+                                    _bit_err(got, want, f"K4 k={k}"))
+        del got, want
+        log(f"K4 uniform_expand n={ROWS} k={k} total={tot} C=3: equal to "
+            "plain bit for bit")
+    ms["uniform_expand"] = paired_ms(
+        lambda: expand.uniform_expand(cols, 2, ROWS * 2),
+        lambda: expand.uniform_expand_plain(cols, 2, ROWS * 2),
+    ) + (f"n={ROWS} k=2 C=3",)
+    # K5: 2^25 nondecreasing indices into 2^25 - 37 rows, with and
+    # without a validity mask (a ragged invalid tail).
+    src = [c[: ROWS - 37] for c in cols]
+    idx = torch.sort(torch.from_numpy(
+        g.integers(0, ROWS - 37, ROWS)).cuda()).values
+    valid = torch.ones(ROWS, dtype=torch.bool, device=idx.device)
+    valid[-1000:] = False
+    valid[::7] = False
+    for v in (None, valid):
+        got = expand.sorted_take(src, idx, v)
+        want = expand.sorted_take_plain(src, idx, v)
+        torch.cuda.synchronize()
+        err["sorted_take"] = max(err["sorted_take"],
+                                 _bit_err(got, want, "K5"))
+        del got, want
+    log(f"K5 sorted_take n_idx={ROWS} n_src={ROWS - 37} C=3, with and "
+        "without a mask: equal to plain bit for bit")
+    ms["sorted_take"] = paired_ms(
+        lambda: expand.sorted_take(src, idx),
+        lambda: expand.sorted_take_plain(src, idx),
+    ) + (f"n_idx={ROWS} C=3",)
+    return err, ms
+
+
 def phase_inf_group(WarpDB, HostTable, group) -> None:
     """The reference's ±inf GROUP BY case (tests/test_pallas_ops.py,
     test_midrange_inf_values_route_to_scatter_engine) through the query
@@ -236,14 +437,22 @@ def phase_profile(run, queries, name: str) -> None:
     for kind, n, q in queries:
         run(kind, q)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            run(kind, q)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not dev:
+        # The tracer now and then returns a run without its device events;
+        # such a run is profiled again, up to three times in all.
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t0 = time.perf_counter()
+                run(kind, q)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            dev = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            if dev:
+                break
+            log(f"  profile {n}: no device activity traced, run again")
+        else:
             raise AssertionError(f"profile {n}: no device activity traced")
         busy, cur = 0.0, None
         for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
@@ -288,6 +497,8 @@ def main(argv: list) -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     from warpdb_tpu_torch import WarpDB, _build
+    from warpdb_tpu_torch.config import get_config
+    from warpdb_tpu_torch.ops import expand
     from warpdb_tpu_torch.ops import group_kernel as group
     from warpdb_tpu_torch.ops import topk_kernel as topk
     from warpdb_tpu_torch.ops.sort import top_k_values
@@ -304,6 +515,8 @@ def main(argv: list) -> int:
         + ", ".join(f"{k}={v}" for k, v in libs.items()))
 
     err = phase_kernels(topk, group)
+    xerr, xms = phase_expand_kernels(expand)
+    err.update(xerr)
     phase_inf_group(WarpDB, HostTable, group)
 
     t0 = time.perf_counter()
@@ -312,8 +525,22 @@ def main(argv: list) -> int:
     want = expected(data)
     log(f"table: {ROWS} rows on {db.device}, set-up {time.perf_counter() - t0:.3f} s")
 
+    cfg = get_config()
+
     def run(kind: str, q: str):
-        return db.query_np(q) if kind == "expr" else db.query_sql(q)
+        if kind == "expr":
+            return db.query_np(q)
+        # The join memo is off (below); the pushdown, count and eager
+        # memos on the tables are dropped too, so that every run filters,
+        # compacts and pre-aggregates anew.
+        for t in (db.table, *db._catalog.values()):
+            for memo in JOIN_MEMOS:
+                getattr(t, memo, {}).clear()
+        cfg.eager_join_aggregation = kind != "sql-no-eager"
+        try:
+            return db.query_sql(q)
+        finally:
+            cfg.eager_join_aggregation = True
 
     queries = [("expr", n, q) for n, q in EXPR_QUERIES] + [
         ("sql", n, q) for n, q in SQL_QUERIES
@@ -333,8 +560,43 @@ def main(argv: list) -> int:
             raise AssertionError(f"kernel {k} was not launched by the slice")
     log(f"slice launches: {launches}")
 
+    # The join phase.  The join memo stays off from here on, so that every
+    # run (and every timed run) materialises its joins; ``run`` drops the
+    # other join memos before each run.
+    t0 = time.perf_counter()
+    jtabs = make_join_tables()
+    for tname, tcols in jtabs.items():
+        db.register_table(tname, HostTable.from_dict(tcols))
+    jwant = expected_joins(data, jtabs)
+    cfg.join_cache_entries = 0
+    log(f"join tables: rates 32, dup 64, dimk {len(jtabs['dimk']['k'])} rows "
+        f"on the card, set-up {time.perf_counter() - t0:.3f} s")
+    join_queries = [("sql" if eager else "sql-no-eager", n, q)
+                    for n, q, eager in JOIN_QUERIES]
+    for fn in (expand.windowed_expand, expand.uniform_expand,
+               expand.sorted_take):
+        fn.launches = 0
+    jres = {n: run(kind, q) for kind, n, q in join_queries}
+    torch.cuda.synchronize()
+    launches.update({
+        "windowed_expand": expand.windowed_expand.launches,
+        "uniform_expand": expand.uniform_expand.launches,
+        "sorted_take": expand.sorted_take.launches,
+    })
+    for kind, n, q in join_queries:
+        e = check(n, jres[n], jwant[n])
+        log(f"join {n}: agrees with numpy ({len(jres[n])} values, max abs "
+            f"err {e!r}) — {q}" + (" [eager rewrite off]"
+                                   if kind == "sql-no-eager" else ""))
+    for k in ("windowed_expand", "uniform_expand", "sorted_take"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the joins")
+    log("join launches: " + str({k: launches[k] for k in (
+        "windowed_expand", "uniform_expand", "sorted_take")}))
+    del jres
+
     log(f"timing on {name}:")
-    for kind, n, q in queries:
+    for kind, n, q in queries + join_queries:
         ts = []
         run(kind, q)
         for _ in range(5):
@@ -362,8 +624,12 @@ def main(argv: list) -> int:
     log(f"  K2 group histogram n={ROWS} slots={KEY_SLOTS} nv=1: kernel "
         f"{g_ms!r} ms, plain bincount+index_add_ {g_plain!r} ms [{name}]")
 
+    for kname, (x_ms, x_plain, shape) in xms.items():
+        log(f"  {kname} {shape}: kernel {x_ms!r} ms, plain {x_plain!r} ms "
+            f"[{name}]")
+
     if profile:
-        phase_profile(run, queries, name)
+        phase_profile(run, queries + join_queries, name)
         phase_ptxas(_build)
 
     if "jax" in sys.modules:
@@ -380,6 +646,13 @@ def main(argv: list) -> int:
          "replaces": "warpdb_tpu/ops/pallas_group.py:101",
          "launches": launches["group_hist"],
          "max_abs_err": err["group_hist"], "ms": g_ms, "plain_ms": g_plain},
+        *({"name": kname, "route": "cuda",
+           "source": f"warpdb_tpu_torch/csrc/{kname}.cu",
+           "replaces": f"warpdb_tpu/ops/pallas_expand.py:{line}",
+           "launches": launches[kname], "max_abs_err": err[kname],
+           "ms": xms[kname][0], "plain_ms": xms[kname][1]}
+          for kname, line in (("windowed_expand", 234),
+                              ("uniform_expand", 360), ("sorted_take", 90))),
     ]}
     print(json.dumps(record))
     print(name)

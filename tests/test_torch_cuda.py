@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from warpdb_tpu_torch import WarpDB
-from warpdb_tpu_torch.ops import group_kernel, topk_kernel
+from warpdb_tpu_torch.ops import expand, group_kernel, topk_kernel
 from warpdb_tpu_torch.storage import HostTable
 
 pytestmark = pytest.mark.cuda
@@ -154,3 +154,170 @@ def test_slice_launches_both_kernels(dbs):
     gpu.query_sql("SELECT SUM(price) FROM t GROUP BY k")
     assert topk_kernel.topk_candidates.launches == k1 + 1
     assert group_kernel.group_counts_sums.launches == k2 + 1
+
+
+# --- K3, K4, K5: bit for bit against their plain versions ----------------
+
+
+def _words(n: int, seed: int):
+    """An f32 column with NaN payloads, ±inf and -0.0, and a full-range
+    int32 column."""
+    rng = np.random.default_rng(seed)
+    f = rng.normal(0, 1e10, n).astype(np.float32)
+    bits = f.view(np.uint32)
+    bits[1:: 97] = 0x7FC01234
+    bits[3:: 89] = 0xFF800001
+    f[5::83], f[7::79], f[9::73] = -np.inf, np.inf, -0.0
+    i = rng.integers(-2**31, 2**31 - 1, n, dtype=np.int32)
+    return f, i
+
+
+def _equal_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("ncols", [1, 3, 17])
+@pytest.mark.parametrize("case", ["dense", "sparse", "left"])
+def test_windowed_expand_matches_plain(cuda, case, ncols):
+    rng = np.random.default_rng(41)
+    n = 300_001
+    if case == "dense":
+        counts = rng.integers(0, 4, n)
+    elif case == "sparse":
+        counts = np.where(rng.random(n) < 0.001, rng.integers(1, 9, n), 0)
+    else:
+        counts = np.maximum(rng.integers(0, 4, n), 1)
+    offsets = torch.from_numpy(np.cumsum(counts) - counts).to(cuda)
+    total = int(counts.sum())
+    f, i = _words(n, 42)
+    cols = [torch.from_numpy(f if c % 2 else i).to(cuda) for c in range(ncols)]
+    before = expand.windowed_expand.launches
+    own, dup, got = expand.windowed_expand(offsets, cols, total, owner=True)
+    pown, pdup, want = expand.windowed_expand_plain(offsets, cols, total,
+                                                    owner=True)
+    torch.cuda.synchronize()
+    assert expand.windowed_expand.launches == before + -(-ncols // 16)
+    assert torch.equal(own, pown) and torch.equal(dup, pdup)
+    _equal_bits(got, want)
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_uniform_expand_matches_plain(cuda, k):
+    n = 250_003
+    f, i = _words(n, 43)
+    cols = [torch.from_numpy(f).to(cuda), torch.from_numpy(i).to(cuda)]
+    total = n * k - 1
+    before = expand.uniform_expand.launches
+    got = expand.uniform_expand(cols, k, total)
+    want = expand.uniform_expand_plain(cols, k, total)
+    torch.cuda.synchronize()
+    assert expand.uniform_expand.launches == before + 1
+    _equal_bits(got, want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_sorted_take_matches_plain(cuda, masked):
+    rng = np.random.default_rng(44)
+    n_src, n_idx = 400_000, 700_001
+    idx = torch.from_numpy(np.sort(rng.integers(0, n_src, n_idx))).to(cuda)
+    valid = (torch.from_numpy(rng.random(n_idx) < 0.8).to(cuda)
+             if masked else None)
+    f, i = _words(n_src, 45)
+    cols = [torch.from_numpy(f).to(cuda), torch.from_numpy(i).to(cuda)]
+    before = expand.sorted_take.launches
+    got = expand.sorted_take(cols, idx, valid)
+    want = expand.sorted_take_plain(cols, idx, valid)
+    torch.cuda.synchronize()
+    assert expand.sorted_take.launches == before + 1
+    _equal_bits(got, want)
+
+
+# --- joins on the card against the port on the CPU -------------------------
+
+
+def _join_tables():
+    rng = np.random.default_rng(46)
+    n = 40_000
+    reps = rng.integers(0, 4, 3000)
+    return {
+        "t": HostTable.from_dict({
+            "k": rng.integers(0, 3000, n).astype(np.float32),
+            "g": rng.integers(0, 16, n).astype(np.float32),
+            "price": rng.uniform(0, 100, n).astype(np.float32),
+            "s": rng.choice(["a", "b", "c", "d"], n),
+        }),
+        "dim": HostTable.from_dict({
+            "dk": np.arange(1000, 3500).astype(np.float32),
+            "w": rng.uniform(0, 1, 2500).astype(np.float32),
+            "name": np.array([f"x{j}" for j in range(2500)]),
+        }),
+        "dup": HostTable.from_dict({
+            "kd": np.tile(np.arange(3000), 2).astype(np.float32),
+            "w2": rng.uniform(0, 1, 6000).astype(np.float32),
+        }),
+        "multi": HostTable.from_dict({
+            "km": np.repeat(np.arange(3000), reps).astype(np.float32),
+            "wm": rng.uniform(0, 1, int(reps.sum())).astype(np.float32),
+        }),
+    }
+
+
+@pytest.fixture(scope="module")
+def join_dbs(cuda):
+    tables = _join_tables()
+    out = []
+    for dev in ("cuda", "cpu"):
+        db = WarpDB(tables["t"], device=dev)
+        for name in ("dim", "dup", "multi"):
+            db.register_table(name, tables[name])
+        out.append(db)
+    return out
+
+
+JOIN_QUERIES = [
+    "SELECT price FROM t JOIN dim ON k = dim.dk",
+    "SELECT dim.name FROM t JOIN dim ON k = dim.dk LIMIT 100",
+    "SELECT dup.w2 FROM t JOIN dup ON k = dup.kd",
+    "SELECT multi.wm FROM t JOIN multi ON k = multi.km",
+    "SELECT multi.wm FROM t LEFT JOIN multi ON k = multi.km",
+    "SELECT COUNT(multi.wm) FROM t LEFT JOIN multi ON k = multi.km",
+    "SELECT price FROM t RIGHT JOIN dim ON k = dim.dk",
+    "SELECT price FROM t JOIN dim ON k = dim.dk WHERE price > 80",
+    "SELECT SUM(price * dup.w2) FROM t JOIN dup ON k = dup.kd GROUP BY g "
+    "ORDER BY g ASC",
+    "SELECT price FROM t JOIN dim ON k = dim.dk ORDER BY price DESC LIMIT 5",
+]
+
+
+@pytest.mark.parametrize("q", JOIN_QUERIES)
+def test_join_on_card_matches_cpu(join_dbs, q):
+    gpu, cpu = join_dbs
+    got, want = gpu.query_sql(q), cpu.query_sql(q)
+    assert len(got) == len(want), q
+    if want and isinstance(want[0], str):
+        assert got == want, q
+        return
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-6, equal_nan=True, err_msg=q)
+
+
+def test_join_launches_the_expansion_kernels(join_dbs):
+    from warpdb_tpu_torch.config import get_config
+
+    gpu, _cpu = join_dbs
+    cfg = get_config()
+    saved, cfg.join_cache_entries = cfg.join_cache_entries, 0
+    try:
+        counts = [expand.windowed_expand.launches,
+                  expand.uniform_expand.launches, expand.sorted_take.launches]
+        gpu.query_sql("SELECT multi.wm FROM t JOIN multi ON k = multi.km")
+        gpu.query_sql("SELECT dup.w2 FROM t JOIN dup ON k = dup.kd")
+        gpu.query_sql("SELECT price FROM t JOIN dim ON k = dim.dk")
+    finally:
+        cfg.join_cache_entries = saved
+    assert expand.windowed_expand.launches > counts[0]
+    assert expand.uniform_expand.launches > counts[1]
+    assert expand.sorted_take.launches > counts[2]

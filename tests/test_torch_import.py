@@ -23,6 +23,16 @@ assert np.allclose(out, [15.25, 10.5, 20.0, 30.0]), out
 assert db.query("price * quantity WHERE price > 15") == [0.0, 80.0, 30.5, 150.0]
 top = db.query_sql("SELECT price FROM test ORDER BY price DESC LIMIT 2")
 assert top == [30.0, 20.0], top
+from warpdb_tpu_torch.storage import HostTable
+db.register_table("other", HostTable.from_dict(
+    {"quantity": np.array([3, 4, 4], np.float32),
+     "tag": np.array(["x", "y", "z"])}))
+joined = db.query_sql(
+    "SELECT other.tag FROM test JOIN other ON test.quantity = other.quantity")
+assert joined == ["x", "y", "z"], joined
+left = db.query_sql(
+    "SELECT price FROM test LEFT JOIN other ON test.quantity = other.quantity")
+assert left == [10.5, 20.0, 20.0, 15.25, 30.0], left
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok")
 """

@@ -43,6 +43,16 @@ KERNELS = {
         "warpdb_group_hist",
         [_P, _LL, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
     ),
+    "windowed_expand": (
+        "warpdb_windowed_expand",
+        [_P, _LL, _LL, _P, _I, _P, _LL, _P, _P, _P],
+    ),
+    "uniform_expand": (
+        "warpdb_uniform_expand", [_P, _I, _LL, _LL, _P, _LL, _I, _P],
+    ),
+    "sorted_take": (
+        "warpdb_sorted_take", [_P, _I, _P, _P, _LL, _P, _LL, _I, _P],
+    ),
 }
 
 _lock = threading.Lock()

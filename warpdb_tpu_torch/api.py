@@ -1,11 +1,12 @@
 """Public facade of the port — the ``WarpDB`` class.
 
-Counterpart of ``warpdb_tpu/api.py:120-477`` for the single-table slice:
+Counterpart of ``warpdb_tpu/api.py:120-477`` for the port's slice:
 ``query`` / ``query_np`` (fused filter + projection) and ``query_sql``
-(SELECT with WHERE, GROUP BY, aggregates, HAVING, DISTINCT, ORDER BY,
-LIMIT / OFFSET).  The device is explicit: ``device=None`` means
-``"cuda"``, and a missing CUDA device is an error, never a silent run on
-the CPU.  ``device="cpu"`` runs the kernels' plain PyTorch versions.
+(SELECT with JOINs over registered tables, WHERE, GROUP BY, aggregates,
+HAVING, DISTINCT, ORDER BY, LIMIT / OFFSET).  The device is explicit:
+``device=None`` means ``"cuda"``, and a missing CUDA device is an error,
+never a silent run on the CPU.  ``device="cpu"`` runs the kernels' plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -64,10 +65,38 @@ def _split_where(expr: str) -> tuple[str, Optional[str]]:
     return expr[: m.start()], expr[m.end():]
 
 
-def decode_result_column(item, values: np.ndarray, table) -> list:
+def _column_vocab(node, table, catalog, joins):
+    """The vocabulary of a column reference in the joined namespace: a
+    qualifier naming a joined relation reads that relation's dictionary;
+    otherwise the FROM relation's, then the joined relations' in join
+    order (how the join resolves unqualified names).  The reference
+    decodes only against the FROM relation's dictionaries, so it returns
+    raw codes for an unqualified build-side string column and decodes a
+    qualified one through a same-named probe column's vocabulary."""
+    # A relation missing from the catalog is the FROM table itself, as
+    # in the join (the reference's demo semantics).
+    joined = [catalog.get(j.table, table) for j in joins]
+    names = [j.table for j in joins]
+    if node.qualifier is not None and node.qualifier in names:
+        t = joined[names.index(node.qualifier)]
+        return t.dicts.get(node.unqualified)
+    vocab = table.dicts.get(node.name)
+    if vocab is None:
+        vocab = table.dicts.get(node.unqualified)
+    if vocab is None and node.unqualified not in table.dtypes:
+        for t in joined:
+            if node.unqualified in t.dtypes:
+                return t.dicts.get(node.unqualified)
+    return vocab
+
+
+def decode_result_column(item, values: np.ndarray, table, catalog=None,
+                         joins=()) -> list:
     """Decode dictionary codes back to strings (or wide ints) when the
     select item is code-valued: a bare coded column, MIN/MAX of one, or a
-    string scalar function; other columns pass through as numbers."""
+    string scalar function; other columns pass through as numbers.
+    ``table`` is the FROM relation; ``catalog`` and ``joins`` (the
+    statement's JOIN clauses) resolve columns of joined relations."""
     from warpdb_tpu.frontend.ast import (
         Aggregation,
         AggregationType,
@@ -99,9 +128,7 @@ def decode_result_column(item, values: np.ndarray, table) -> list:
         vals = np.asarray(values)
         if vals.dtype.kind == "f" and not np.all(np.isfinite(vals)):
             return vals.tolist()  # empty-aggregate sentinels
-        vocab = table.dicts.get(node.name)
-        if vocab is None:
-            vocab = table.dicts.get(node.unqualified)
+        vocab = _column_vocab(node, table, catalog or {}, joins)
         if vocab is not None:
             return decode_codes(vals, vocab)
     return np.asarray(values).tolist()
@@ -169,8 +196,7 @@ class WarpDB:
         return self._table.stats
 
     def register_table(self, name: str, source, schema=None) -> None:
-        """Register another table (FROM may name it; a JOIN against it
-        raises ``UnsupportedError`` until the port runs joins)."""
+        """Register another table under ``name`` for FROM and JOIN."""
         if isinstance(source, DeviceTable):
             self._catalog[name] = source
         else:
@@ -214,22 +240,38 @@ class WarpDB:
         return run_expression(self._table, expr_ast, cond_ast)
 
     # -- SQL path ----------------------------------------------------------
-    def _base_table(self, ast):
+    def _base_table(self, ast, catalog):
         name = ast.from_source or ast.from_table
-        if name not in self._catalog and self._catalog.strict:
+        if name not in catalog and catalog.strict:
             raise ValidationError(f"Unknown table: {name}")
-        return self._catalog.get(name, self._table)
+        return catalog.get(name, self._table)
 
-    def _validate_sql(self, ast) -> None:
-        """Clause validation against the FROM relation's columns."""
-        table = self._base_table(ast)
-        table_names = {self._name, ast.from_table, *self._catalog.keys()}
-        validate_query(ast, set(table.dtypes.keys()), table_names)
+    def _join_columns(self, ast, catalog) -> set:
+        """Column names the JOIN relations add, bare and qualified."""
+        out: set = set()
+        for j in ast.joins:
+            t = catalog.get(j.source or j.table)
+            if t is None and j.source is not None:
+                t = catalog.get(j.table)
+            names = (t if t is not None else self._table).dtypes.keys()
+            if t is not None:
+                out |= set(names)
+            out |= {f"{j.table}.{c}" for c in names}
+        return out
+
+    def _validate_sql(self, ast, table, catalog) -> None:
+        """Clause validation against the FROM and JOIN relations'
+        columns (``run_query`` checks the relations themselves)."""
+        table_names = {self._name, ast.from_table, *catalog.keys()}
+        table_names |= {j.table for j in ast.joins}
+        validate_query(ast, set(table.dtypes.keys())
+                       | self._join_columns(ast, catalog), table_names)
 
     def query_sql(self, sql: str) -> list:
-        """Run one single-table SELECT; returns the first select item's
-        values (strings decoded)."""
+        """Run one SELECT (joins included); returns the first select
+        item's values (strings decoded)."""
         from .engine.executor import (
+            _resolve_alias_catalog,
             expand_stars_query,
             reject_unsupported,
             run_query,
@@ -245,11 +287,12 @@ class WarpDB:
         except (ParseError, TokenizeError) as e:
             raise ParseError(f"Failed to parse SQL: {e}") from None
         reject_unsupported(ast)
-        self._validate_sql(ast)
-        base = self._base_table(ast)
-        result = run_query(ast, base)
-        first = expand_stars_query(ast, base)[0]
-        return decode_result_column(first, result, base)
+        base = self._base_table(ast, self._catalog)
+        catalog = _resolve_alias_catalog(ast, base, self._catalog)
+        self._validate_sql(ast, base, catalog)
+        result = run_query(ast, base, catalog)
+        first = expand_stars_query(ast, base, catalog)[0]
+        return decode_result_column(first, result, base, catalog, ast.joins)
 
     # -- entry points outside the slice -------------------------------------
     def query_sharded(self, *args, **kwargs):

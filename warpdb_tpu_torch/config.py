@@ -1,7 +1,7 @@
 """Engine configuration of the port.
 
-Only the fields the single-table slice reads.  The thresholds start at
-the reference's values (``warpdb_tpu/config.py:21,28,39-43``); they are
+Only the fields the port reads.  The thresholds start at the
+reference's values (``warpdb_tpu/config.py:21,28,39-63``); they are
 v5e-derived and not yet measured on the H100.
 """
 
@@ -27,6 +27,13 @@ class EngineConfig:
     # SUM/COUNT-only midrange queries take the histogram kernel (K2) up
     # to this many slots (reference: mxu_group_max_slots; v5e-derived).
     group_hist_max_slots: int = 1 << 16
+    # Materialised joins memoised per probe table (LRU entries; 0 turns
+    # the memo off, as timing runs must).
+    join_cache_entries: int = 4
+    # Aggregate pushdown through a join (reference eager_join_aggregation).
+    eager_join_aggregation: bool = True
+    # Probe- and build-side WHERE pushdown below joins.
+    join_filter_pushdown: bool = True
     # Float64 load policy ("strict" | "downcast"), as the reference.
     f64_policy: str = "strict"
     # UDF module discovered in the working directory.

@@ -1,15 +1,15 @@
 """Plan executor: lowers parsed queries onto the port's operators.
 
-Counterpart of ``warpdb_tpu/engine/executor.py`` for the single-table
-slice:
+Counterpart of ``warpdb_tpu/engine/executor.py`` for the port's slice:
 
 * ``run_expression``: fused filter + projection, a length-N f32 vector
   (filtered-out rows 0.0), the reference ``WarpDB::query`` contract;
-* ``run_query``: WHERE → GROUP BY/HAVING or projection → DISTINCT →
-  ORDER BY (top-k or full sort) → OFFSET/LIMIT.
+* ``run_query``: join rewrites and the JOIN chain (``join_exec``) →
+  WHERE → GROUP BY/HAVING or projection → DISTINCT → ORDER BY (top-k or
+  full sort) → OFFSET/LIMIT.
 
-Everything outside the slice (joins, subqueries, CTEs, set operations,
-windows, QUALIFY, grouping sets, string aggregates, HLL) raises
+Everything outside the slice (subqueries, CTEs, set operations, windows,
+QUALIFY, grouping sets, string aggregates, HLL) raises
 ``UnsupportedError`` naming the feature.  Operators evaluate over the
 table's unpadded row views; PyTorch's dynamic shapes replace the
 reference's capacity buckets, and a filter is a boolean index, which
@@ -134,9 +134,7 @@ def _reject_nodes(node: Optional[Node]) -> None:
 
 def reject_unsupported(query: Query) -> None:
     """Raise ``UnsupportedError`` naming the first feature of ``query``
-    outside the single-table slice."""
-    if query.joins:
-        raise UnsupportedError("JOIN is not supported by warpdb_tpu_torch yet")
+    outside the port's slice."""
     if query.from_subquery is not None:
         raise UnsupportedError(
             "Derived tables (FROM subqueries) are not supported by "
@@ -162,6 +160,7 @@ def reject_unsupported(query: Query) -> None:
         *query.select_list, query.where, query.having,
         *(query.group_by.keys if query.group_by else ()),
         *(t.expr for t in (query.order_by.terms if query.order_by else ())),
+        *(j.condition for j in query.joins),
     ]:
         _reject_nodes(node)
 
@@ -459,25 +458,81 @@ def run_expression(table, expr: Node, cond: Optional[Node]) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _expand_stars(select_list, table, from_name=None) -> list:
-    """``*`` / ``t.*`` select items → every column of ``table``."""
-    if not any(isinstance(unalias(s), Star) for s in select_list):
-        return select_list
+def expand_stars_query(query: Query, table, catalog=None) -> list:
+    """``*`` / ``t.*`` select items → columns (catalog-aware): over a
+    join, the build sides' columns follow the probe's, unqualified where
+    the name is free and qualified otherwise (the joined table's
+    namespace)."""
+    if not any(isinstance(unalias(s), Star) for s in query.select_list):
+        return query.select_list
+    catalog = catalog or {}
+    base_names = [n for n in table.dtypes if "." not in n]
+    seen = set(base_names)
+    join_names: dict = {}
+    for join in query.joins:
+        right = catalog.get(join.table, table)
+        lst = join_names.setdefault(join.table, [])
+        for n in right.dtypes:
+            if "." in n:
+                continue
+            if n in seen:
+                lst.append(f"{join.table}.{n}")
+            else:
+                lst.append(n)
+                seen.add(n)
     out: list = []
-    for s in select_list:
+    for s in query.select_list:
         node = unalias(s)
         if isinstance(node, Star):
-            if node.table is not None and node.table != from_name:
+            if node.table is None:
+                out.extend(Variable(n) for n in base_names)
+                for lst in join_names.values():
+                    out.extend(Variable(n) for n in lst)
+            elif node.table == query.from_table:
+                out.extend(Variable(n) for n in base_names)
+            elif node.table in join_names:
+                out.extend(Variable(n) for n in join_names[node.table])
+            else:
                 raise ValidationError(f"Unknown table: {node.table}")
-            out.extend(Variable(n) for n in table.dtypes if "." not in n)
         else:
             out.append(s)
     return out
 
 
-def expand_stars_query(query: Query, table) -> list:
-    """``SELECT *`` expansion for a single-table query."""
-    return _expand_stars(query.select_list, table, query.from_table)
+def _resolve_alias_catalog(query: Query, table, catalog):
+    """The catalog extended with this statement's relation aliases
+    (``FROM x AS a``, ``JOIN y AS b``) bound to their tables, so the
+    join machinery works in alias names; a self-join gives two aliases
+    of one table.  A copy: the given catalog, and its ``strict`` flag,
+    stay as they are."""
+    if query.from_source is None and not any(j.source for j in query.joins):
+        return catalog
+    catalog = copy.copy(catalog) if catalog is not None else {}
+    if query.from_source is not None:
+        catalog[query.from_table] = table  # the alias shadows a real name
+    for j in query.joins:
+        if j.source:
+            catalog[j.table] = catalog.get(j.source, table)
+    return catalog
+
+
+def _validate_relations(query: Query, catalog) -> None:
+    """Every FROM / JOIN relation must be a catalog name once the
+    catalog is strict (a table was registered); before that any name
+    means the primary table, the reference's demo semantics.  Plain-dict
+    catalogs count as strict when they hold more than the primary and
+    its ``t`` alias."""
+    if catalog is None:
+        return
+    strict = getattr(catalog, "strict", None)
+    if strict is None:
+        strict = len(catalog) > 2
+    if not strict:
+        return
+    for name in [query.from_source or query.from_table,
+                 *(j.source or j.table for j in query.joins)]:
+        if name and name not in catalog:
+            raise ValidationError(f"Unknown table: {name}")
 
 
 def resolve_order_aliases(query: Query, columns=None) -> Query:
@@ -564,19 +619,40 @@ def _dedup_rows(arrays: list, ordered: bool) -> list:
     return [c[idx] for c in cols]
 
 
-def run_query(query: Query, table) -> np.ndarray:
-    """Execute a parsed single-table SELECT against ``table`` (the FROM
-    relation, resolved by the facade); returns the first select item's
-    values (the reference's single-vector contract)."""
+def run_query(query: Query, table, catalog: Optional[dict] = None
+              ) -> np.ndarray:
+    """Execute a parsed SELECT against ``table`` (the FROM relation,
+    resolved by the facade); JOIN relations resolve through ``catalog``
+    (an unknown name means ``table`` itself, the reference's demo
+    semantics).  Returns the first select item's values (the reference's
+    single-vector contract)."""
     reject_unsupported(query)
     query = resolve_order_aliases(query, table.columns)
+    _validate_relations(query, catalog)
+    catalog = _resolve_alias_catalog(query, table, catalog)
     if any(isinstance(s, Alias) for s in query.select_list):
         query = copy.copy(query)
         query.select_list = [unalias(s) for s in query.select_list]
-    expanded = expand_stars_query(query, table)
+    expanded = expand_stars_query(query, table, catalog)
     if expanded is not query.select_list:
         query = copy.copy(query)
         query.select_list = expanded
+
+    if query.joins:
+        from . import join_exec as jx
+
+        catalog = catalog or {}
+        query = jx._lift_implicit_join_conditions(query, table, catalog)
+        query = jx._split_join_residuals(query)
+        # Build-side pushdown first: removing single-relation conjuncts
+        # can leave an all-probe WHERE for the probe pushdown.
+        query, catalog = jx._pushdown_build_filters(query, table, catalog)
+        query, table = jx._pushdown_join_where(query, table, catalog)
+        if query.group_by is not None:
+            rewritten = jx._try_eager_join_aggregate(query, table, catalog)
+            if rewritten is not None:
+                query, catalog = rewritten
+        table = jx._materialize_joins(query, table, catalog)
 
     query = _bind_query_strings(query, table)
     if not query.select_list:

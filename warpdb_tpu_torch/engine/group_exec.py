@@ -351,6 +351,20 @@ def _run_grouped_multi(query: Query, table, select_items: list) -> list:
                            plan["spec_to_vidx"], result, plan["keys_canon"])
 
 
+def run_grouped_columns(query: Query, table) -> dict:
+    """Every select item of one grouped query, by output name (an alias,
+    else the item's canonical form), from a single grouping pass; rows
+    in the order ``_run_grouped`` gives.  The eager join rewrite builds
+    its pre-aggregated build side with it."""
+    from .executor import _bind_query_strings
+
+    query = _bind_query_strings(query, table)
+    names = [s.name if isinstance(s, Alias) else s.canonical()
+             for s in query.select_list]
+    items = [unalias(s) for s in query.select_list]
+    return dict(zip(names, _run_grouped_multi(query, table, items)))
+
+
 def _integral_key_check(table, key_expr) -> tuple:
     """``(integral_static, ok)`` for a dense/midrange key: static for
     int / string-code columns, else checked on the device once per

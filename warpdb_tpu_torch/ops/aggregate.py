@@ -78,14 +78,38 @@ def sorted_first_flags(skeys_s: tuple) -> torch.Tensor:
     return first
 
 
+_SUM_BLOCKS = 1024
+
+
+def _scatter_sum(seg, capacity, v):
+    """Per-segment sums of f32 ``v``.  An f32 accumulator that takes
+    millions of adds (a 32-slot GROUP BY over 2^26 joined rows) drifts
+    by tenths of a percent, and its atomics serialise on the card.  So
+    when slots average 4096 rows or more, each of up to 1024 blocks of
+    rows adds into its own partial table and the partials sum in f64;
+    with fewer rows per slot one f32 table is faster, and accurate
+    enough (H100 timings of both in PERF.md)."""
+    n, width = v.shape[0], capacity + 1
+    blocks = min(_SUM_BLOCKS, n >> 12) if width <= n >> 12 else 1
+    if blocks <= 1:
+        out = torch.zeros(width, dtype=v.dtype, device=v.device)
+        out.index_add_(0, seg, v)
+        return out[:capacity]
+    rows = -(-n // blocks)
+    blk = torch.arange(n, device=v.device) // rows
+    part = torch.zeros(blocks * width, dtype=v.dtype, device=v.device)
+    part.index_add_(0, seg + blk * width, v)
+    sums = part.view(blocks, width).sum(0, dtype=torch.float64)
+    return sums[:capacity].to(v.dtype)
+
+
 def _scatter_table(seg, capacity, v, reduce, init):
     """``reduce`` of ``v`` per segment into a capacity-sized table;
     segments equal to ``capacity`` (invalid rows) are dropped."""
-    out = torch.full((capacity + 1,), init, dtype=v.dtype, device=v.device)
     if reduce == "sum":
-        out.index_add_(0, seg, v)
-    else:
-        out.scatter_reduce_(0, seg, v, reduce, include_self=True)
+        return _scatter_sum(seg, capacity, v)
+    out = torch.full((capacity + 1,), init, dtype=v.dtype, device=v.device)
+    out.scatter_reduce_(0, seg, v, reduce, include_self=True)
     return out[:capacity]
 
 
