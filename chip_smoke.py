@@ -22,7 +22,14 @@ Phases, each raising on failure:
 6. timing: median wall time of 5 warm runs per query (joins with every
    join memo off or dropped before the run), and each kernel's time
    beside its plain version at the path's shapes (CUDA events);
-7. with ``--profile`` only: one ``torch.profiler`` run per query (card
+7. TPC-H: the 22 queries of ``benchmarks/tpch.py`` (subqueries, CTEs,
+   derived tables, multi-way joins) through ``query_sql_table`` at 2^22
+   lineitem rows, each checked against the suite's NumPy oracle with its
+   own gate; per query the K1-K5 launches, the device of every
+   materialised table (it must be the card), the median of 5 warm runs
+   with every memo dropped before each run, and the host round trip of
+   its materialised tables; the phase must launch a kernel;
+8. with ``--profile`` only: one ``torch.profiler`` run per query (card
    busy time, idle share, largest device items) and each kernel's
    registers and spills from ``ptxas -v``.
 
@@ -33,6 +40,7 @@ The line before the last is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -102,6 +110,19 @@ JOIN_QUERIES = [
 # What the join path memoises on a table instance (besides the join memo,
 # which ``join_cache_entries = 0`` turns off).
 JOIN_MEMOS = ("_prefilter_memo", "_count_memo", "_eja_memo")
+# The derived and decorrelation tables memoised on a table instance (the
+# CTE memo is the facade's ``_cte_memo``).
+SUBQUERY_MEMOS = ("_subq_memo",)
+
+# The TPC-H phase: the suite's own default scale (benchmarks/tpch.py).
+TPCH_ROWS = 1 << 22
+TPCH_SEED = 42
+# The kernels the 22 queries reach at that scale: K3 in q13's LEFT join,
+# K5 in the pushdown compactions and semicompact joins.  K1 serves only a
+# one-column ORDER BY … LIMIT (q2 selects several columns, which sort in
+# full, as the reference's ``_run_projection_multi`` does); no grouping
+# takes the midrange tier (K2) and no join fans out uniformly (K4).
+TPCH_KERNELS = ("windowed_expand", "sorted_take")
 
 # f32 sums per group (2^20 rows per group for GROUP BY quantity, 512 for
 # GROUP BY k, up to 2^21 joined rows per group in the join phase) add in
@@ -426,6 +447,166 @@ def phase_inf_group(WarpDB, HostTable, group) -> None:
     log("K2 ±inf GROUP BY through the query path: the reference's answer")
 
 
+def load_tpch():
+    """``benchmarks/tpch.py`` (numpy only at module level; its
+    ``build_db`` is the JAX package's and is not called here)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "benchmarks"))
+    import tpch
+
+    return tpch
+
+
+class RoundTrip:
+    """Host time of ``materialize_query_table`` outside the query it
+    materialises: the decode, the re-encode and the upload of each
+    derived, CTE and decorrelation table (the result's own device→host
+    copy is inside the query).  Wraps the two functions while active."""
+
+    def __init__(self, subquery, executor):
+        self.mods = (subquery, executor)
+        self.frames: list = []  # [run seconds, run depth] per materialise
+        self.total = self.seconds = 0.0
+
+    def __enter__(self):
+        sub, ex = self.mods
+        self.saved = (sub.materialize_query_table, ex.run_query_table)
+        mat, run = self.saved
+
+        def materialize(*a, **kw):
+            self.frames.append([0.0, 0])
+            t0 = time.perf_counter()
+            try:
+                return mat(*a, **kw)
+            finally:
+                el = time.perf_counter() - t0
+                inner, _depth = self.frames.pop()
+                if not self.frames:
+                    self.total += el
+                self.seconds += el - inner
+
+        def run_table(*a, **kw):
+            frame = self.frames[-1] if self.frames else None
+            if frame is not None:
+                frame[1] += 1
+            t0 = time.perf_counter()
+            try:
+                return run(*a, **kw)
+            finally:
+                if frame is not None:
+                    frame[1] -= 1
+                    if frame[1] == 0:
+                        frame[0] += time.perf_counter() - t0
+
+        sub.materialize_query_table, ex.run_query_table = materialize, run_table
+        return self
+
+    def __exit__(self, *exc):
+        sub, ex = self.mods
+        sub.materialize_query_table, ex.run_query_table = self.saved
+
+
+def phase_tpch(WarpDB, HostTable, kernels: dict, name: str) -> tuple:
+    """The 22 TPC-H-derived queries through ``query_sql_table`` at
+    ``TPCH_ROWS`` lineitem rows, each checked with the suite's own gate
+    against its NumPy oracle; per query the kernel launches, the
+    materialised tables (all on the card), the median of 5 warm runs
+    and the host round trip of its materialised tables.  Returns
+    ``(kernel launches over the checked runs, run function, queries)``
+    for the profile."""
+    from warpdb_tpu_torch.engine import executor, subquery
+    from warpdb_tpu_torch.storage import DeviceTable
+
+    tpch = load_tpch()
+    t0 = time.perf_counter()
+    tables = tpch.make_tables(TPCH_ROWS, seed=TPCH_SEED)
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db = WarpDB(HostTable.from_dict(tables["lineitem"]), device="cuda")
+    db.register_table("lineitem", db.table)
+    for tname in ("orders", "customer", "supplier", "nation", "region",
+                  "part", "partsupp"):
+        db.register_table(tname, HostTable.from_dict(tables[tname]))
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = {q: tpch.oracle(tables, q) for q in tpch.QUERIES}
+    t_oracle = time.perf_counter() - t0
+    log(f"tpch: {TPCH_ROWS} lineitem rows, seed {TPCH_SEED}; set-up: "
+        f"make_tables {t_make!r} s, upload {t_upload!r} s, oracle "
+        f"{t_oracle!r} s")
+
+    def run(_kind, sql):
+        # Every run materialises anew: the join memo is off, and the
+        # pushdown, count, eager, subquery and CTE memos are dropped.
+        for t in (db.table, *db._catalog.values()):
+            for memo in JOIN_MEMOS + SUBQUERY_MEMOS:
+                getattr(t, memo, {}).clear()
+        getattr(db, "_cte_memo", {}).clear()
+        return db.query_sql_table(sql)
+
+    # Every table a query materialises (derived, CTE, set-op and
+    # decorrelation tables) is made by DeviceTable.from_host; collect them.
+    made: list = []
+    from_host = DeviceTable.from_host.__func__
+
+    def collect(cls, *a, **kw):
+        made.append(from_host(cls, *a, **kw))
+        return made[-1]
+
+    for fn in kernels.values():
+        fn.launches = 0
+    DeviceTable.from_host = classmethod(collect)
+    try:
+        for q, sql in tpch.QUERIES.items():
+            before = {k: fn.launches for k, fn in kernels.items()}
+            del made[:]
+            got = run("sql", sql)
+            torch.cuda.synchronize()
+            per = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            tpch.check_results(q, got, want[q])
+            off = [str(t.device) for t in made if t.device.type != "cuda"
+                   or any(c.device.type != "cuda"
+                          for c in t.columns.values())]
+            if off:
+                raise AssertionError(f"tpch {q}: materialised tables on {off}")
+            log(f"tpch {q}: agrees with the oracle "
+                f"({len(next(iter(got.values())))} rows); launches {per}; "
+                f"{len(made)} materialised tables, all on cuda")
+    finally:
+        DeviceTable.from_host = classmethod(from_host)
+    total = {k: fn.launches for k, fn in kernels.items()}
+    for k in TPCH_KERNELS:
+        if total[k] <= 0:
+            raise AssertionError(f"tpch: kernel {k} was not launched")
+    log(f"tpch launches: {total}")
+
+    log(f"tpch timing on {name} (median of 5 warm runs; materialise = "
+        "time in materialize_query_table, round trip = its part outside "
+        "the materialised query):")
+    for q, sql in tpch.QUERIES.items():
+        run("sql", sql)
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run("sql", sql)
+            ts.append(time.perf_counter() - t0)
+        med = sorted(ts)[2]
+        with RoundTrip(subquery, executor) as rt:
+            t0 = time.perf_counter()
+            run("sql", sql)
+            wall = time.perf_counter() - t0
+        extra = ""
+        if rt.total:
+            extra = (f"; materialise {rt.total * 1e3!r} ms, round trip "
+                     f"{rt.seconds * 1e3!r} ms = "
+                     f"{100 * rt.seconds / wall!r}% of that run's "
+                     f"{wall * 1e3!r} ms")
+        log(f"  tpch {q}: median {med * 1e3!r} ms{extra} [{name}]")
+    queries = [("sql", f"tpch_{q}", sql) for q, sql in tpch.QUERIES.items()]
+    return total, run, queries
+
+
 def phase_profile(run, queries, name: str) -> None:
     """One profiled warm run per slice query (torch.profiler, CPU and
     CUDA activities): profiled wall, card-busy time (the union of the
@@ -606,6 +787,16 @@ def main(argv: list) -> int:
         log(f"  query {n}: median {sorted(ts)[2] * 1e3!r} ms over 5 warm runs "
             f"[{name}]")
 
+    kernels = {"topk": topk.topk_candidates,
+               "group_hist": group.group_counts_sums,
+               "windowed_expand": expand.windowed_expand,
+               "uniform_expand": expand.uniform_expand,
+               "sorted_take": expand.sorted_take}
+    tpch_launches, tpch_run, tpch_queries = phase_tpch(WarpDB, HostTable,
+                                                       kernels, name)
+    for k, c in tpch_launches.items():
+        launches[k] += c
+
     cols = db.table.row_columns()
     u = cols["price"]
     # Both sides give the final top-k: K1 plus the torch.topk finish over
@@ -630,6 +821,7 @@ def main(argv: list) -> int:
 
     if profile:
         phase_profile(run, queries + join_queries, name)
+        phase_profile(tpch_run, tpch_queries, name)
         phase_ptxas(_build)
 
     if "jax" in sys.modules:

@@ -321,3 +321,68 @@ def test_join_launches_the_expansion_kernels(join_dbs):
     assert expand.windowed_expand.launches > counts[0]
     assert expand.uniform_expand.launches > counts[1]
     assert expand.sorted_take.launches > counts[2]
+
+
+# --- TPC-H queries (subqueries, CTEs, derived tables) on the card ----------
+
+
+def _tpch():
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                           / "benchmarks"))
+    import tpch
+
+    return tpch
+
+
+@pytest.fixture(scope="module")
+def tpch_dbs(cuda):
+    tpch = _tpch()
+    tables = tpch.make_tables(12_000, seed=11)
+    out = []
+    for dev in ("cuda", "cpu"):
+        db = WarpDB(HostTable.from_dict(tables["lineitem"]), device=dev)
+        db.register_table("lineitem", db.table)
+        for name in ("orders", "customer", "supplier", "nation", "region",
+                     "part", "partsupp"):
+            db.register_table(name, HostTable.from_dict(tables[name]))
+        out.append(db)
+    return tables, out[0], out[1]
+
+
+@pytest.mark.parametrize("name", ["q1", "q3", "q4", "q11", "q13", "q15",
+                                  "q16", "q17", "q20", "q21", "q22"])
+def test_tpch_on_card_matches_cpu_and_oracle(tpch_dbs, name):
+    tables, gpu, cpu = tpch_dbs
+    tpch = _tpch()
+    got = gpu.query_sql_table(tpch.QUERIES[name])
+    want = cpu.query_sql_table(tpch.QUERIES[name])
+    tpch.check_results(name, got, tpch.oracle(tables, name))
+    assert list(got) == list(want)
+    for col in want:
+        if want[col] and isinstance(want[col][0], str):
+            assert got[col] == want[col], (name, col)
+        else:
+            # Sums add in another order on the card.
+            np.testing.assert_allclose(
+                np.asarray(got[col], np.float64),
+                np.asarray(want[col], np.float64), rtol=1e-4, atol=1e-6,
+                err_msg=f"{name} {col}")
+
+
+def test_materialised_tables_on_the_card(tpch_dbs):
+    """The CTE, derived and decorrelation tables of q13, q17, q21 and q22
+    live on the card."""
+    _tables, gpu, _cpu = tpch_dbs
+    tpch = _tpch()
+    for name in ("q13", "q17", "q21", "q22"):
+        gpu.query_sql_table(tpch.QUERIES[name])
+    tables = [*gpu._cte_memo.values(),
+              *(t for src in (gpu.table, *gpu._catalog.values())
+                for t in getattr(src, "_subq_memo", {}).values())]
+    assert len(tables) >= 5
+    for t in tables:
+        assert t.device.type == "cuda"
+        assert all(c.device.type == "cuda" for c in t.columns.values())

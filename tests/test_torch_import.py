@@ -33,6 +33,14 @@ assert joined == ["x", "y", "z"], joined
 left = db.query_sql(
     "SELECT price FROM test LEFT JOIN other ON test.quantity = other.quantity")
 assert left == [10.5, 20.0, 20.0, 15.25, 30.0], left
+import warpdb_tpu_torch.engine.subquery  # noqa: F401
+table = db.query_sql_table(
+    "WITH q AS (SELECT quantity FROM other UNION SELECT 5 FROM other) "
+    "SELECT price, quantity FROM test WHERE quantity IN (SELECT quantity "
+    "FROM q) AND price > (SELECT MIN(price) FROM (SELECT price FROM test) "
+    "AS d) AND EXISTS (SELECT 1 FROM other WHERE other.quantity = "
+    "test.quantity) ORDER BY price DESC")
+assert table == {"price": [20.0], "quantity": [4.0]}, table
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok")
 """

@@ -435,9 +435,9 @@ def test_join_unsupported_forms_raise(dbs):
     for q, feature in [
         ("SELECT price FROM t LEFT JOIN dim ON k < dim.k2", "JOIN"),
         ("SELECT price FROM t JOIN dim ON k = dim.k2 "
-         "WHERE price > (SELECT AVG(w) FROM dim)", "Subqueries"),
-        ("SELECT price FROM t JOIN dim ON k = dim.k2 UNION "
-         "SELECT w FROM dim", "Set operations"),
+         "QUALIFY ROW_NUMBER() OVER (ORDER BY price) <= 3", "QUALIFY"),
+        ("SELECT SUM(price) OVER (PARTITION BY dim.s) FROM t JOIN dim "
+         "ON k = dim.k2", "Window functions"),
     ]:
         with pytest.raises(UnsupportedError, match=feature):
             port.query_sql(q)

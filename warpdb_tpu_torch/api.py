@@ -1,17 +1,21 @@
 """Public facade of the port — the ``WarpDB`` class.
 
-Counterpart of ``warpdb_tpu/api.py:120-477`` for the port's slice:
-``query`` / ``query_np`` (fused filter + projection) and ``query_sql``
-(SELECT with JOINs over registered tables, WHERE, GROUP BY, aggregates,
-HAVING, DISTINCT, ORDER BY, LIMIT / OFFSET).  The device is explicit:
-``device=None`` means ``"cuda"``, and a missing CUDA device is an error,
-never a silent run on the CPU.  ``device="cpu"`` runs the kernels' plain
-PyTorch versions.
+Counterpart of ``warpdb_tpu/api.py`` for the port's slice: ``query`` /
+``query_np`` (fused filter + projection), ``query_sql`` (the first
+select item) and ``query_sql_table`` (every select item, by name): SELECT
+with JOINs over registered tables, subqueries, derived tables, WHERE,
+GROUP BY, aggregates, HAVING, DISTINCT, ORDER BY, LIMIT / OFFSET, plus
+the two features that resolve here, ``WITH`` (CTEs) and UNION / EXCEPT /
+INTERSECT [ALL].  The device is explicit: ``device=None`` means
+``"cuda"``, and a missing CUDA device is an error, never a silent run on
+the CPU.  ``device="cpu"`` runs the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
 
+import copy
 import re
+from collections import Counter
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,6 +36,7 @@ from warpdb_tpu.frontend import (
     validate_expression,
     validate_query,
 )
+from warpdb_tpu.frontend.ast import Star, unalias
 from warpdb_tpu.storage import DataType, HostTable, load_table
 
 from .storage.table import DeviceTable
@@ -241,10 +246,24 @@ class WarpDB:
 
     # -- SQL path ----------------------------------------------------------
     def _base_table(self, ast, catalog):
+        """The FROM relation through the catalog; a derived table's
+        ``from_table`` is its alias, never a catalog name."""
+        from .engine.executor import _is_strict
+
+        if ast.from_subquery is not None:
+            return self._table
         name = ast.from_source or ast.from_table
-        if name not in catalog and catalog.strict:
+        if name not in catalog and _is_strict(catalog):
             raise ValidationError(f"Unknown table: {name}")
         return catalog.get(name, self._table)
+
+    def _decode_base(self, ast, base, catalog):
+        """The relation result decoding reads vocabularies from: the
+        derived table when the FROM is a subquery (a memo hit after the
+        run), else the FROM relation."""
+        from .engine.subquery import decode_table
+
+        return decode_table(ast, base, catalog)
 
     def _join_columns(self, ast, catalog) -> set:
         """Column names the JOIN relations add, bare and qualified."""
@@ -259,23 +278,76 @@ class WarpDB:
             out |= {f"{j.table}.{c}" for c in names}
         return out
 
-    def _validate_sql(self, ast, table, catalog) -> None:
-        """Clause validation against the FROM and JOIN relations'
-        columns (``run_query`` checks the relations themselves)."""
+    def _validate_sql(self, ast, catalog) -> None:
+        """Relation and clause validation.  A derived table validates its
+        inner query against its own FROM and the outer query against the
+        inner's output names; each set-op branch validates against its
+        own relations (the chain's trailing ORDER BY names output
+        columns and is checked when the chain runs)."""
+        from .engine.executor import _validate_relations, result_column_names
+
+        _validate_relations(ast, catalog)
+        sub = ast.from_subquery
+        if sub is None:
+            cols = set(self._base_table(ast, catalog).dtypes)
+        else:
+            self._validate_sql(sub, catalog)
+            if any(isinstance(unalias(x), Star) for x in sub.select_list):
+                cols = set(self._base_table(sub, catalog).dtypes)
+            else:
+                cols = set(result_column_names(sub.select_list))
         table_names = {self._name, ast.from_table, *catalog.keys()}
         table_names |= {j.table for j in ast.joins}
-        validate_query(ast, set(table.dtypes.keys())
-                       | self._join_columns(ast, catalog), table_names)
+        validate_query(ast, cols | self._join_columns(ast, catalog),
+                       table_names)
+        for i, (_op, _all, branch) in enumerate(ast.set_ops):
+            if i == len(ast.set_ops) - 1 and branch.order_by is not None:
+                branch = copy.copy(branch)
+                branch.order_by = None
+            self._validate_sql(branch, catalog)
 
-    def query_sql(self, sql: str) -> list:
-        """Run one SELECT (joins included); returns the first select
-        item's values (strings decoded)."""
-        from .engine.executor import (
-            _resolve_alias_catalog,
-            expand_stars_query,
-            reject_unsupported,
-            run_query,
+    def _resolve_ctes(self, ast, catalog=None):
+        """Materialise the statement's ``WITH`` CTEs into an extended
+        per-statement catalog, in order (later CTEs and the main query
+        see earlier ones as table names; a body may carry its own WITH
+        or be a set-operation chain).  Memoised on this facade by name,
+        output names and ``query_dep_key``."""
+        from .engine.executor import _is_strict, result_column_names
+        from .engine.subquery import (
+            _memoised,
+            materialize_query_table,
+            query_dep_key,
         )
+
+        catalog = self._catalog if catalog is None else catalog
+        if not ast.ctes:
+            return catalog
+        strict = _is_strict(catalog)
+        catalog = Catalog(catalog)
+        catalog.strict = strict
+        for name, q in ast.ctes:
+            inner = self._resolve_ctes(q, catalog)  # a nested WITH
+            if q.ctes:
+                q = copy.copy(q)
+                q.ctes = []
+            self._validate_sql(q, inner)
+            base = self._base_table(q, inner)
+            # canonical() drops aliases; the CTE's schema is alias-named.
+            mkey = (name, tuple(result_column_names(q.select_list))) + \
+                query_dep_key(q, base, inner)
+            catalog[name] = _memoised(
+                self, mkey,
+                lambda q=q, base=base, inner=inner: (
+                    self._setop_device_table(q, inner) if q.set_ops
+                    else materialize_query_table(q, base, inner)),
+                attr="_cte_memo", entries=8,
+            )
+        return catalog
+
+    def _prepare_sql(self, sql: str):
+        """Parse, reject what the port does not run, resolve the CTEs and
+        validate.  Returns ``(ast without its CTEs, catalog)``."""
+        from .engine.executor import reject_unsupported
 
         if _DDL.match(sql):
             raise UnsupportedError(
@@ -287,12 +359,176 @@ class WarpDB:
         except (ParseError, TokenizeError) as e:
             raise ParseError(f"Failed to parse SQL: {e}") from None
         reject_unsupported(ast)
-        base = self._base_table(ast, self._catalog)
-        catalog = _resolve_alias_catalog(ast, base, self._catalog)
-        self._validate_sql(ast, base, catalog)
+        catalog = self._resolve_ctes(ast)
+        self._validate_sql(ast, catalog)
+        if ast.ctes:
+            ast = copy.copy(ast)
+            ast.ctes = []  # resolved into ``catalog``
+        return ast, catalog
+
+    def _decoded_columns(self, ast, base, catalog, result: dict) -> dict:
+        """``{name: list}`` of a result, strings decoded through the
+        statement's namespace."""
+        from .engine.executor import _resolve_alias_catalog, expand_stars_query
+
+        dbase = self._decode_base(ast, base, catalog)
+        catalog = _resolve_alias_catalog(ast, dbase, catalog)
+        items = expand_stars_query(ast, dbase, catalog)
+        return {
+            name: decode_result_column(item, vals, dbase, catalog, ast.joins)
+            for item, (name, vals) in zip(items, result.items())
+        }
+
+    def query_sql(self, sql: str) -> list:
+        """Run one SELECT statement; returns the first select item's
+        values (strings decoded)."""
+        from .engine.executor import run_query
+
+        ast, catalog = self._prepare_sql(sql)
+        if ast.set_ops:
+            return list(next(iter(self._setop_table(ast, catalog).values()),
+                             []))
+        base = self._base_table(ast, catalog)
         result = run_query(ast, base, catalog)
-        first = expand_stars_query(ast, base, catalog)[0]
-        return decode_result_column(first, result, base, catalog, ast.joins)
+        first = {"": result}
+        return next(iter(self._decoded_columns(ast, base, catalog,
+                                               first).values()))
+
+    def query_sql_table(self, sql: str) -> dict:
+        """Run one SELECT statement; returns every select item as a named
+        column, ``{name: list}`` (strings decoded)."""
+        from .engine.executor import run_query_table
+
+        ast, catalog = self._prepare_sql(sql)
+        if ast.set_ops:
+            return self._setop_table(ast, catalog)
+        base = self._base_table(ast, catalog)
+        result = run_query_table(ast, base, catalog)
+        return self._decoded_columns(ast, base, catalog, result)
+
+    def _setop_table(self, ast, catalog) -> dict:
+        """A ``UNION / EXCEPT / INTERSECT [ALL]`` chain: each branch runs
+        through the engine against its own relations, and the decoded
+        rows merge on the host (O(result)).  INTERSECT binds tighter
+        than UNION / EXCEPT, which chain left to right; distinct variants
+        deduplicate (first occurrence wins, NaNs equal), ALL variants
+        keep multiplicities (EXCEPT ALL subtracts, INTERSECT ALL keeps
+        the minimum).  The final branch's ORDER BY / LIMIT / OFFSET apply
+        to the whole result; ORDER BY names output columns, NaNs last
+        when ascending."""
+        from .engine.executor import result_column_name, run_query_table
+
+        branches = [("UNION", False, ast)] + list(ast.set_ops)
+        parts: list = []
+        names: Optional[list] = None
+        order_by = limit = offset = None
+        for i, (_op, _flag, q) in enumerate(branches):
+            qq = copy.copy(q)
+            qq.set_ops = []
+            qq.ctes = []
+            if i == len(branches) - 1:
+                order_by, limit, offset = qq.order_by, qq.limit, qq.offset
+                qq.order_by = qq.limit = qq.offset = None
+            base = self._base_table(qq, catalog)
+            res = run_query_table(qq, base, catalog)
+            cols = list(self._decoded_columns(qq, base, catalog,
+                                              res).values())
+            if names is None:
+                names = list(res.keys())
+            elif len(cols) != len(names):
+                raise ValidationError(
+                    "UNION/EXCEPT/INTERSECT branches must select the same "
+                    "number of columns"
+                )
+            parts.append(list(zip(*cols)) if cols else [])
+
+        def key(row):
+            return tuple("\0nan" if isinstance(v, float) and v != v else v
+                         for v in row)
+
+        def dedup(rows):
+            seen: set = set()
+            out = []
+            for r in rows:
+                if key(r) not in seen:
+                    seen.add(key(r))
+                    out.append(r)
+            return out
+
+        def bag(left, right, keep: bool):
+            """EXCEPT ALL (``keep`` False) / INTERSECT ALL (True)."""
+            budget = Counter(key(r) for r in right)
+            out = []
+            for r in left:
+                hit = budget[key(r)] > 0
+                if hit:
+                    budget[key(r)] -= 1
+                if hit == keep:
+                    out.append(r)
+            return out
+
+        def combine(op, all_flag, left, right):
+            if op == "UNION":
+                return left + right if all_flag else dedup(left + right)
+            if all_flag:
+                return bag(left, right, op == "INTERSECT")
+            other = {key(r) for r in right}
+            keep = op == "INTERSECT"
+            return [r for r in dedup(left) if (key(r) in other) == keep]
+
+        # INTERSECT folds into the segment on its left; the segments then
+        # chain left to right.
+        segments: list = []
+        for (op, all_flag, _q), rows in zip(branches, parts):
+            if op == "INTERSECT" and segments:
+                prev_op, prev_all, prev_rows = segments[-1]
+                segments[-1] = (prev_op, prev_all,
+                                combine(op, all_flag, prev_rows, rows))
+            else:
+                segments.append((op, all_flag, rows))
+        acc = segments[0][2]
+        for op, all_flag, rows in segments[1:]:
+            acc = combine(op, all_flag, acc, rows)
+
+        if order_by is not None:
+            keys = []
+            for term in order_by.terms:
+                name = result_column_name(term.expr, 0, ())
+                if name not in names:
+                    raise UnsupportedError(
+                        "Set-operation ORDER BY must reference an output "
+                        f"column (got {name})"
+                    )
+                keys.append((names.index(name), term.ascending))
+            for idx, asc in reversed(keys):
+                acc = sorted(
+                    acc, reverse=not asc,
+                    key=lambda row, i=idx: (1, 0.0) if (
+                        isinstance(row[i], float) and row[i] != row[i]
+                    ) else (0, row[i]),
+                )
+        if offset:
+            acc = acc[offset:]
+        if limit is not None:
+            acc = acc[:limit]
+        return {nm: [row[i] for row in acc] for i, nm in enumerate(names)}
+
+    def _setop_device_table(self, ast, catalog) -> DeviceTable:
+        """A set-operation chain's result as a DeviceTable on this
+        facade's device (a CTE body); strings re-encode with a fresh
+        vocabulary."""
+        arrays: dict = {}
+        dtypes: dict = {}
+        for name, vals in self._setop_table(ast, catalog).items():
+            if any(isinstance(v, str) for v in vals):
+                arrays[name] = np.asarray(list(vals), dtype=object)
+                dtypes[name] = DataType.STRING
+            else:
+                arrays[name] = np.asarray(list(vals), np.float32)
+        return DeviceTable.from_host(
+            HostTable.from_dict(arrays, dtypes=dtypes or None),
+            device=self._device,
+        )
 
     # -- entry points outside the slice -------------------------------------
     def query_sharded(self, *args, **kwargs):

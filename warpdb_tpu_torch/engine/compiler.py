@@ -31,10 +31,15 @@ from warpdb_tpu.frontend.ast import (
     CaseWhen,
     CodeMap,
     Constant,
+    ExistsSubquery,
     FunctionCall,
     InCodeSet,
+    InSubquery,
+    InValueSet,
     Node,
     NotNull,
+    QuantifiedComparison,
+    ScalarSubquery,
     Star,
     Variable,
     WindowFunction,
@@ -347,6 +352,23 @@ def build_evaluator(node: Node) -> Callable[[dict], torch.Tensor]:
             return torch.where(c >= 0, out, torch.tensor(miss, device=c.device))
 
         return codemap_fn
+    if isinstance(node, InValueSet):
+        inner = build_evaluator(node.expr)
+        vals_cpu = torch.from_numpy(np.asarray(node.values, np.float32))
+
+        def in_values_fn(cols):
+            # f32 equality, as the reference's compare sweep: NaN and
+            # values that do not round-trip through f32 never match.
+            x = _as_f32(inner(cols))
+            return torch.isin(x, vals_cpu.to(x.device))
+
+        return in_values_fn
+    if isinstance(node, (ScalarSubquery, InSubquery, ExistsSubquery,
+                         QuantifiedComparison)):
+        raise ExecutionError(
+            "Unresolved subquery reached the compiler — subqueries are "
+            "resolved by the executor before kernel compilation"
+        )
     if isinstance(node, (Aggregation, WindowFunction)):
         raise ExecutionError(
             f"{type(node).__name__} is not a row-level expression; "

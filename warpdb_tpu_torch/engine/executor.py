@@ -4,12 +4,15 @@ Counterpart of ``warpdb_tpu/engine/executor.py`` for the port's slice:
 
 * ``run_expression``: fused filter + projection, a length-N f32 vector
   (filtered-out rows 0.0), the reference ``WarpDB::query`` contract;
-* ``run_query``: join rewrites and the JOIN chain (``join_exec``) →
+* ``run_query``: derived tables, decorrelation and expression subqueries
+  (``subquery``) → join rewrites and the JOIN chain (``join_exec``) →
   WHERE → GROUP BY/HAVING or projection → DISTINCT → ORDER BY (top-k or
-  full sort) → OFFSET/LIMIT.
+  full sort) → OFFSET/LIMIT;
+* ``run_query_table``: the same pipeline returning every select item as
+  a named, row-aligned column.
 
-Everything outside the slice (subqueries, CTEs, set operations, windows,
-QUALIFY, grouping sets, string aggregates, HLL) raises
+CTEs and set operations resolve at the facade.  Windows, QUALIFY,
+grouping sets, STRING_AGG and APPROX_COUNT_DISTINCT raise
 ``UnsupportedError`` naming the feature.  Operators evaluate over the
 table's unpadded row views; PyTorch's dynamic shapes replace the
 reference's capacity buckets, and a filter is a boolean index, which
@@ -47,7 +50,6 @@ from warpdb_tpu.frontend.ast import (
     LikePattern,
     Node,
     OrderBy,
-    QuantifiedComparison,
     Query,
     ScalarSubquery,
     Star,
@@ -62,12 +64,15 @@ from warpdb_tpu.storage.strings import literal_code
 
 from ..ops.aggregate import count_distinct
 from ..ops.sort import (
+    lexsort,
+    order_key,
     sort_by_keys,
     sort_key_any,
     sort_pairs,
     sort_values,
     top_k_values,
 )
+from . import join_exec as jx
 from .compiler import (
     _as_bool,
     _as_f32,
@@ -82,13 +87,22 @@ from .group_exec import (
     _group_level_eval,
     _provably_not_null,
     _run_grouped,
+    _run_grouped_multi,
     _try_dense_group,
 )
 from .optimizer import analyze_condition, expr_range, fold_constants
+from .subquery import (
+    _CORR_PREFIX,
+    _decorrelate_subqueries,
+    _resolve_expr_subqueries,
+    _resolve_from_subquery,
+)
 
 __all__ = [
     "run_expression",
     "run_query",
+    "run_query_table",
+    "result_column_name",
     "bind_strings",
     "expand_stars_query",
     "reject_unsupported",
@@ -108,18 +122,10 @@ def _next_pow2(n: int) -> int:
 # The slice's boundary
 # ---------------------------------------------------------------------------
 
-_SUBQUERY_NODES = (ScalarSubquery, InSubquery, ExistsSubquery,
-                   QuantifiedComparison)
-
-
 def _reject_nodes(node: Optional[Node]) -> None:
     if node is None:
         return
     for n in walk(node):
-        if isinstance(n, _SUBQUERY_NODES):
-            raise UnsupportedError(
-                "Subqueries are not supported by warpdb_tpu_torch yet"
-            )
         if isinstance(n, WindowFunction):
             raise UnsupportedError(
                 "Window functions are not supported by warpdb_tpu_torch yet"
@@ -134,21 +140,9 @@ def _reject_nodes(node: Optional[Node]) -> None:
 
 def reject_unsupported(query: Query) -> None:
     """Raise ``UnsupportedError`` naming the first feature of ``query``
-    outside the port's slice."""
-    if query.from_subquery is not None:
-        raise UnsupportedError(
-            "Derived tables (FROM subqueries) are not supported by "
-            "warpdb_tpu_torch yet"
-        )
-    if query.ctes:
-        raise UnsupportedError(
-            "WITH (CTEs) is not supported by warpdb_tpu_torch yet"
-        )
-    if query.set_ops:
-        raise UnsupportedError(
-            "Set operations (UNION/EXCEPT/INTERSECT) are not supported by "
-            "warpdb_tpu_torch yet"
-        )
+    outside the port (windows, QUALIFY, grouping sets, STRING_AGG,
+    APPROX_COUNT_DISTINCT).  Subqueries, CTE bodies and set-op branches
+    are checked when they run."""
     if query.qualify is not None:
         raise UnsupportedError("QUALIFY is not supported by warpdb_tpu_torch yet")
     if query.group_by is not None and query.group_by.sets is not None:
@@ -163,6 +157,20 @@ def reject_unsupported(query: Query) -> None:
         *(j.condition for j in query.joins),
     ]:
         _reject_nodes(node)
+
+
+def _reject_facade_only(query: Query) -> None:
+    """Set operations and CTEs resolve at the facade, not here."""
+    if query.set_ops:
+        raise UnsupportedError(
+            "Set operations (UNION/EXCEPT/INTERSECT) execute at the "
+            "facade: use WarpDB.query_sql / query_sql_table"
+        )
+    if query.ctes:
+        raise UnsupportedError(
+            "WITH (CTEs) resolve at the facade: use WarpDB.query_sql / "
+            "query_sql_table"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +470,8 @@ def expand_stars_query(query: Query, table, catalog=None) -> list:
     """``*`` / ``t.*`` select items → columns (catalog-aware): over a
     join, the build sides' columns follow the probe's, unqualified where
     the name is free and qualified otherwise (the joined table's
-    namespace)."""
+    namespace).  Decorrelation joins (``__corr…``) are plumbing and add
+    no columns."""
     if not any(isinstance(unalias(s), Star) for s in query.select_list):
         return query.select_list
     catalog = catalog or {}
@@ -470,6 +479,8 @@ def expand_stars_query(query: Query, table, catalog=None) -> list:
     seen = set(base_names)
     join_names: dict = {}
     for join in query.joins:
+        if join.table.startswith(_CORR_PREFIX):
+            continue
         right = catalog.get(join.table, table)
         lst = join_names.setdefault(join.table, [])
         for n in right.dtypes:
@@ -516,23 +527,50 @@ def _resolve_alias_catalog(query: Query, table, catalog):
     return catalog
 
 
-def _validate_relations(query: Query, catalog) -> None:
-    """Every FROM / JOIN relation must be a catalog name once the
-    catalog is strict (a table was registered); before that any name
-    means the primary table, the reference's demo semantics.  Plain-dict
-    catalogs count as strict when they hold more than the primary and
-    its ``t`` alias."""
-    if catalog is None:
+def _is_strict(catalog) -> bool:
+    """A catalog is strict once a table was registered: unknown relation
+    names raise.  Plain-dict catalogs count as strict when they hold more
+    than the primary and its ``t`` alias."""
+    return getattr(catalog, "strict", len(catalog) > 2)
+
+
+def _validate_relations(query: Query, catalog,
+                        outer_names=frozenset()) -> None:
+    """Every FROM / JOIN / subquery relation must be a catalog name once
+    the catalog is strict (``_is_strict``); before that any name means
+    the primary table, the reference's demo semantics.  Derived tables,
+    set-op branches and subqueries are checked too; a subquery may name
+    its outer relations (correlation), and the decorrelation joins are
+    skipped."""
+    if catalog is None or not _is_strict(catalog):
         return
-    strict = getattr(catalog, "strict", None)
-    if strict is None:
-        strict = len(catalog) > 2
-    if not strict:
-        return
-    for name in [query.from_source or query.from_table,
-                 *(j.source or j.table for j in query.joins)]:
-        if name and name not in catalog:
-            raise ValidationError(f"Unknown table: {name}")
+    names = set(catalog) | set(outer_names)
+    local: set = set()
+
+    def check(real_name, alias=None):
+        if real_name and real_name not in names:
+            raise ValidationError(f"Unknown table: {real_name}")
+        local.update(n for n in (real_name, alias) if n)
+
+    if query.from_subquery is not None:
+        _validate_relations(query.from_subquery, catalog, names)
+        local.add(query.from_table)  # the derived table's alias
+    else:
+        check(query.from_source or query.from_table, query.from_table)
+    for j in query.joins:
+        if not j.table.startswith(_CORR_PREFIX):
+            check(j.source or j.table, j.table)
+    for _op, _all, branch in query.set_ops:
+        _validate_relations(branch, catalog, names)
+    for n in [*query.select_list, query.where, query.having, query.qualify,
+              *(query.group_by.keys if query.group_by else ()),
+              *(t.expr for t in (query.order_by.terms if query.order_by
+                                 else ()))]:
+        if n is None:
+            continue
+        for x in walk(n):
+            if isinstance(x, (ScalarSubquery, InSubquery, ExistsSubquery)):
+                _validate_relations(x.query, catalog, names | local)
 
 
 def resolve_order_aliases(query: Query, columns=None) -> Query:
@@ -619,6 +657,45 @@ def _dedup_rows(arrays: list, ordered: bool) -> list:
     return [c[idx] for c in cols]
 
 
+def _resolve_subqueries(query: Query, table, catalog):
+    """The steps every query takes before its joins, in the reference's
+    order: the facade-only and unsupported checks, ORDER BY / HAVING /
+    GROUP BY aliases, relation names, the derived table, the alias
+    catalog, decorrelation, then expression subqueries.  Returns
+    ``(query', table', catalog')``."""
+    _reject_facade_only(query)
+    reject_unsupported(query)
+    query = resolve_order_aliases(query, table.columns)
+    _validate_relations(query, catalog)
+    if query.from_subquery is not None:
+        query, table = _resolve_from_subquery(query, table, catalog)
+        # The derived table answers to its alias from here on, so the
+        # query's later passes (the join's, each item's) find it.  The
+        # reference leaves it out and raises "Unknown table" there.
+        catalog = copy.copy(catalog) if catalog is not None else {}
+        catalog[query.from_table] = table
+    catalog = _resolve_alias_catalog(query, table, catalog)
+    query, catalog = _decorrelate_subqueries(query, table, catalog)
+    query = _resolve_expr_subqueries(query, table, catalog)
+    return query, table, catalog or {}
+
+
+def _join_rewrites(query: Query, table, catalog):
+    """The join rewrites before materialisation: implicit joins, theta
+    residuals, build-side then probe-side WHERE pushdown (removing
+    single-relation conjuncts can leave an all-probe WHERE), the eager
+    aggregation.  Returns ``(query', probe', catalog')``."""
+    query = jx._lift_implicit_join_conditions(query, table, catalog)
+    query = jx._split_join_residuals(query)
+    query, catalog = jx._pushdown_build_filters(query, table, catalog)
+    query, table = jx._pushdown_join_where(query, table, catalog)
+    if query.group_by is not None:
+        rewritten = jx._try_eager_join_aggregate(query, table, catalog)
+        if rewritten is not None:
+            query, catalog = rewritten
+    return query, table, catalog
+
+
 def run_query(query: Query, table, catalog: Optional[dict] = None
               ) -> np.ndarray:
     """Execute a parsed SELECT against ``table`` (the FROM relation,
@@ -626,10 +703,7 @@ def run_query(query: Query, table, catalog: Optional[dict] = None
     (an unknown name means ``table`` itself, the reference's demo
     semantics).  Returns the first select item's values (the reference's
     single-vector contract)."""
-    reject_unsupported(query)
-    query = resolve_order_aliases(query, table.columns)
-    _validate_relations(query, catalog)
-    catalog = _resolve_alias_catalog(query, table, catalog)
+    query, table, catalog = _resolve_subqueries(query, table, catalog)
     if any(isinstance(s, Alias) for s in query.select_list):
         query = copy.copy(query)
         query.select_list = [unalias(s) for s in query.select_list]
@@ -639,19 +713,7 @@ def run_query(query: Query, table, catalog: Optional[dict] = None
         query.select_list = expanded
 
     if query.joins:
-        from . import join_exec as jx
-
-        catalog = catalog or {}
-        query = jx._lift_implicit_join_conditions(query, table, catalog)
-        query = jx._split_join_residuals(query)
-        # Build-side pushdown first: removing single-relation conjuncts
-        # can leave an all-probe WHERE for the probe pushdown.
-        query, catalog = jx._pushdown_build_filters(query, table, catalog)
-        query, table = jx._pushdown_join_where(query, table, catalog)
-        if query.group_by is not None:
-            rewritten = jx._try_eager_join_aggregate(query, table, catalog)
-            if rewritten is not None:
-                query, catalog = rewritten
+        query, table, catalog = _join_rewrites(query, table, catalog)
         table = jx._materialize_joins(query, table, catalog)
 
     query = _bind_query_strings(query, table)
@@ -681,6 +743,148 @@ def run_query(query: Query, table, catalog: Optional[dict] = None
     if query.limit is not None and query.limit < len(values):
         values = values[: query.limit]
     return values
+
+
+def result_column_name(item, i: int, taken) -> str:
+    """Output column name of a select item: its alias, else its
+    canonical form without the ``[idx]`` suffix; a name already taken
+    gets ``_i``."""
+    if isinstance(item, Alias):
+        name = item.name
+    else:
+        name = item.canonical()
+        if name.endswith("[idx]"):
+            name = name[: -len("[idx]")]
+    if name in taken:
+        name = f"{name}_{i}"
+    return name
+
+
+def result_column_names(select_list) -> list:
+    """``result_column_name`` of every item, in order."""
+    names: list = []
+    for i, item in enumerate(select_list):
+        names.append(result_column_name(item, i, set(names)))
+    return names
+
+
+def _slice_rows(vals, query: Query):
+    """OFFSET, then LIMIT, on the host."""
+    if query.offset is not None:
+        vals = vals[query.offset:] if query.offset < len(vals) else vals[:0]
+    if query.limit is not None and query.limit < len(vals):
+        vals = vals[: query.limit]
+    return vals
+
+
+def _where_verdict(query: Query, table):
+    """``query`` with its WHERE folded and, where stats decide it,
+    dropped; None when the WHERE provably keeps no row."""
+    if query.where is None:
+        return query
+    where = fold_constants(query.where)
+    verdict = analyze_condition(where, table.stats)
+    if verdict is False:
+        return None
+    query = copy.copy(query)
+    query.where = None if verdict is True else where
+    return query
+
+
+def run_query_table(query: Query, table, catalog: Optional[dict] = None
+                    ) -> dict:
+    """Execute a SELECT returning every select item as a named column
+    (``result_column_name``), rows aligned across columns (reference
+    ``run_query_table``).  Multi-column DISTINCT without aggregates
+    becomes GROUP BY over the select list; DISTINCT over aggregates
+    deduplicates the finished rows on the host."""
+    query, table, catalog = _resolve_subqueries(query, table, catalog)
+    expanded = expand_stars_query(query, table, catalog)
+    if expanded is not query.select_list:
+        query = copy.copy(query)
+        query.select_list = expanded
+
+    if query.joins:
+        # Materialise the join chain once; the join-free rest runs on
+        # the joined table.
+        query, table, catalog = _join_rewrites(query, table, catalog)
+        joined = jx._materialize_joins(query, table, catalog)
+        q2 = copy.copy(query)
+        q2.joins = ()
+        return run_query_table(q2, joined, catalog)
+
+    items = [unalias(s) for s in query.select_list]
+    if query.distinct and (len(items) > 1 or query.group_by is not None):
+        if query.group_by is None and not any(
+            isinstance(n, Aggregation) for it in items for n in walk(it)
+        ):
+            # SELECT DISTINCT a, b ≡ SELECT a, b GROUP BY a, b.
+            keys = {it.canonical(): it for it in items}
+            query = copy.copy(query)
+            query.distinct = False
+            query.group_by = GroupBy(tuple(keys.values()))
+        else:
+            q2 = copy.copy(query)
+            q2.distinct = False
+            q2.limit = q2.offset = None
+            out = run_query_table(q2, table, catalog)
+            deduped = _dedup_rows(list(out.values()),
+                                  ordered=query.order_by is not None)
+            return {k: _slice_rows(v, query) for k, v in zip(out, deduped)}
+
+    names = result_column_names(query.select_list)
+    if query.group_by is not None:
+        # One grouped pass serves every select item.
+        q = _where_verdict(_bind_query_strings(query, table), table)
+        if q is None:
+            return {n: np.zeros(0, np.float32) for n in names}
+        cols = _run_grouped_multi(q, table, [unalias(s) for s in
+                                             q.select_list])
+        return {n: _slice_rows(v, query) for n, v in zip(names, cols)}
+
+    if len(items) > 1 and not any(
+        isinstance(n, Aggregation) for it in items for n in walk(it)
+    ):
+        # Non-grouped, join-free multi-item SELECT: one mask, one sort.
+        q = _where_verdict(query, table)
+        if q is None:
+            return {n: np.zeros(0, np.float32) for n in names}
+        q = _bind_query_strings(q, table)
+        cols = _run_projection_multi(q, table,
+                                     [unalias(s) for s in q.select_list])
+        return {n: _slice_rows(v, query) for n, v in zip(names, cols)}
+
+    out = {}
+    for name, item in zip(names, query.select_list):
+        q = copy.copy(query)
+        q.select_list = [item]
+        out[name] = run_query(q, table, catalog)
+    return out
+
+
+def _run_projection_multi(query: Query, table, select_items: list) -> list:
+    """Non-grouped multi-item SELECT: every item over one WHERE mask,
+    carried through one stable sort (ORDER BY) or the mask's order;
+    row-aligned by construction (reference ``_run_projection_multi``)."""
+    raw_specs = [raw_int_item(s, table) for s in select_items]
+    outs = [_row_values(s, table, r) for s, r in zip(select_items, raw_specs)]
+    valid = _where_mask(query, table)
+    order = query.order_by
+    if order is None:
+        if valid is not None:
+            outs = [o[valid] for o in outs]
+    else:
+        count = table.num_rows if valid is None else int(valid.sum())
+        if query.limit is not None:
+            count = min(count, query.limit + (query.offset or 0))
+        perm = lexsort([
+            order_key(_order_operand(t, table), valid if i == 0 else None,
+                      t.ascending)
+            for i, t in enumerate(order.terms)
+        ])[:count]
+        outs = [o[perm] for o in outs]
+    return [o.cpu().numpy().astype(np.float32 if r is None else r[1])
+            for o, r in zip(outs, raw_specs)]
 
 
 def _row_values(item, table, raw_spec):
