@@ -1,6 +1,6 @@
 """Drive warpdb_tpu_torch once on a CUDA card, end to end.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --kernels]
 
 Phases, each raising on failure:
 
@@ -10,7 +10,11 @@ Phases, each raising on failure:
    expansions K3 and K4 and its sorted gather K5) compile from
    ``warpdb_tpu_torch/csrc`` with nvcc for sm_90a, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   K3-K5 bit for bit at the join's full sizes;
+   K3-K5 bit for bit at the join's full sizes (K3 and K4 also at their
+   edge shapes), then each timed at the main path's shapes beside its
+   plain version, the one PyTorch call computing the same function where
+   there is one, and its bound (bytes over the card's memory rate);
+   ``--kernels`` stops here, after printing each kernel's ptxas usage;
 4. slice: ``WarpDB(..., device="cuda")`` over bench.py's table (2^25
    rows, seed 12345) runs bench.py's query set and four more queries,
    each checked against NumPy on the same arrays; the K1 and K2 launch
@@ -20,8 +24,7 @@ Phases, each raising on failure:
    queries and five more, each checked against NumPy; the K3, K4 and K5
    launch counters must rise during this phase;
 6. timing: median wall time of 5 warm runs per query (joins with every
-   join memo off or dropped before the run), and each kernel's time
-   beside its plain version at the path's shapes (CUDA events);
+   join memo off or dropped before the run);
 7. TPC-H: the 22 queries of ``benchmarks/tpch.py`` (subqueries, CTEs,
    derived tables, multi-way joins) through ``query_sql_table`` at 2^22
    lineitem rows, each checked against the suite's NumPy oracle with its
@@ -33,8 +36,9 @@ Phases, each raising on failure:
    busy time, idle share, largest device items) and each kernel's
    registers and spills from ``ptxas -v``.
 
-The line before the last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.  The script imports no JAX.
+The kernels' JSON record and the card's name and power limit come before
+the last line, ``{"ok": true, "device": {...}}``.  Neither the script nor
+the port imports JAX or ``warpdb_tpu``.
 """
 
 from __future__ import annotations
@@ -129,6 +133,10 @@ TPCH_KERNELS = ("windowed_expand", "sorted_take")
 # a run-dependent order on the card; against a float64 sum the relative
 # error stays below this bound.
 SUM_RTOL = 1e-4
+
+# The H100 SXM's device-memory rate (NVIDIA's data sheet); every kernel
+# here is bound by bytes, none by operations.
+HBM_TB_S = 3.35
 SUMS = {"group_sum", "group_sum_k", "e2e_join_expand",
         "e2e_join_expand_eager", "e2e_join_filtered", "join_dimk_sum",
         "join_left_sum"}
@@ -261,14 +269,37 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def paired_ms(kernel, plain) -> tuple:
-    """Kernel and plain times in turns (plain, kernel, kernel, plain)."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def turns_ms(kernel, *others) -> tuple:
+    """The kernel's time and each other function's, in turns (others,
+    kernel, kernel, others reversed): ``(kernel ms, [other ms, ...])``."""
+    first = [cuda_ms(f) for f in others]
+    k = (cuda_ms(kernel) + cuda_ms(kernel)) / 2
+    last = [cuda_ms(f) for f in reversed(others)][::-1]
+    return k, [(a + b) / 2 for a, b in zip(first, last)]
 
 
-def phase_kernels(topk, group) -> dict:
-    """K1 and K2 against their plain versions on the card."""
+def bound_ms(nbytes: int) -> float:
+    """The least time the card could move ``nbytes`` in: each input byte
+    read once and each output byte written once, at HBM_TB_S."""
+    return nbytes / (HBM_TB_S * 1e9)
+
+
+def timing(kernel, plain, library, nbytes: int, shape: str) -> dict:
+    """One kernel's timing record: the kernel, its plain version and the
+    single PyTorch call for the same function (None where there is none),
+    timed in turns, beside its bound."""
+    others = (plain,) if library is None else (plain, library)
+    k, o = turns_ms(kernel, *others)
+    return {"ms": k, "plain_ms": o[0],
+            "library_ms": o[1] if library is not None else None,
+            "bound_ms": bound_ms(nbytes), "shape": shape}
+
+
+def phase_kernels(topk, group) -> tuple:
+    """K1 and K2 against their plain versions on the card, and each timed
+    at the slice's shapes."""
+    from warpdb_tpu_torch.ops.sort import top_k_values
+
     g = np.random.default_rng(7)
     err = {"topk": 0.0, "group_hist": 0.0}
     for n in (ROWS, ROWS - 37):
@@ -325,7 +356,21 @@ def phase_kernels(topk, group) -> dict:
     if not torch.equal(s, want):
         raise AssertionError(f"K2 ±inf: {s.tolist()}")
     log("K2 ±inf values: only their own slots are non-finite")
-    return err
+    # The slice's shapes: ORDER BY price DESC LIMIT 5 over 2^25 uniform
+    # prices (k = 16 after rounding up) and GROUP BY k (2^16 slots, one
+    # value column).  Both K1 sides give the final top-k: the kernel plus
+    # the torch.topk finish over its candidates, against torch.topk.
+    u = torch.from_numpy(g.uniform(0, 100, ROWS).astype(np.float32)).cuda()
+    ms = {"topk": timing(lambda: top_k_values(u, None, 16, False),
+                         lambda: topk.topk_candidates_plain(u, 16),
+                         lambda: torch.topk(u, 16), ROWS * 4 + 16 * 4,
+                         f"n={ROWS} k=16, with the finish")}
+    gid = torch.from_numpy(g.integers(0, KEY_SLOTS, ROWS).astype(np.int32)).cuda()
+    ms["group_hist"] = timing(
+        lambda: group.group_counts_sums(gid, [u], KEY_SLOTS),
+        lambda: group.group_counts_sums_plain(gid, [u], KEY_SLOTS),
+        None, ROWS * 8 + KEY_SLOTS * 8, f"n={ROWS} slots={KEY_SLOTS} nv=1")
+    return err, ms
 
 
 def _special_words(g, n: int) -> list:
@@ -367,38 +412,64 @@ def phase_expand_kernels(expand) -> tuple:
     offsets = torch.from_numpy(np.cumsum(counts) - counts).cuda()
     total = int(counts.sum())
     cols = _special_words(g, ROWS)
-    for owner in (True, False):
-        o, d, t = expand.windowed_expand(offsets, cols, total, owner=owner)
-        po, pd, pt = expand.windowed_expand_plain(offsets, cols, total, owner)
-        torch.cuda.synchronize()
-        err["windowed_expand"] = max(
-            err["windowed_expand"],
-            _bit_err(t + (d,) + ((o,) if owner else ()),
-                     pt + (pd,) + ((po,) if owner else ()), "K3"),
-        )
-    del o, d, t, po, pd, pt
-    log(f"K3 windowed_expand n={ROWS} total={total} C=3: owner, dup and "
-        f"columns equal to plain bit for bit")
-    ms["windowed_expand"] = paired_ms(
+    # Edge shapes at the same scale: long runs of zero-count rows (a tile
+    # whose owners span thousands of rows), one row owning every output,
+    # a single probe row; owner on and off, C = 1, 3 and 16.
+    zero_runs = np.zeros(ROWS, np.int64)
+    zero_runs[::7919] = g.integers(1, 4, zero_runs[::7919].shape[0])
+    one_owner = np.zeros(ROWS, np.int64)
+    one_owner[ROWS // 3] = ROWS
+    for case, cnt, ncols in (("ragged", counts, 3), ("ragged", counts, 16),
+                             ("zero_runs", zero_runs, 1),
+                             ("zero_runs", zero_runs, 16),
+                             ("one_owner", one_owner, 1),
+                             ("one_owner", one_owner, 16),
+                             ("one_row", np.array([ROWS]), 1),
+                             ("one_row", np.array([ROWS]), 16)):
+        off = torch.from_numpy(np.cumsum(cnt) - cnt).cuda()
+        tot = int(cnt.sum())
+        src = [cols[c % 3][: cnt.shape[0]] for c in range(ncols)]
+        for owner in (True, False):
+            o, d, t = expand.windowed_expand(off, src, tot, owner=owner)
+            po, pd, pt = expand.windowed_expand_plain(off, src, tot, owner)
+            torch.cuda.synchronize()
+            err["windowed_expand"] = max(
+                err["windowed_expand"],
+                _bit_err(t + (d,) + ((o,) if owner else ()),
+                         pt + (pd,) + ((po,) if owner else ()), "K3 " + case),
+            )
+            del o, d, t, po, pd, pt
+        log(f"K3 windowed_expand {case} n={cnt.shape[0]} total={tot} "
+            f"C={ncols}: owner, dup and columns equal to plain bit for bit "
+            "(owner on and off)")
+    del off
+    # Bytes: the offsets, the column words of rows that emit, and dup plus
+    # three columns per output (owner is off in the timed call).
+    ms["windowed_expand"] = timing(
         lambda: expand.windowed_expand(offsets, cols, total),
-        lambda: expand.windowed_expand_plain(offsets, cols, total),
-    ) + (f"n={ROWS} total={total} C=3",)
+        lambda: expand.windowed_expand_plain(offsets, cols, total), None,
+        ROWS * 8 + int((counts > 0).sum()) * 12 + total * 16,
+        f"n={ROWS} total={total} C=3")
     del offsets
-    # K4: 2^25 source rows, k = 2 and 3, ragged totals.
-    for k in (2, 3):
-        tot = ROWS * k - 5
-        got = expand.uniform_expand(cols, k, tot)
-        want = expand.uniform_expand_plain(cols, k, tot)
-        torch.cuda.synchronize()
-        err["uniform_expand"] = max(err["uniform_expand"],
-                                    _bit_err(got, want, f"K4 k={k}"))
-        del got, want
-        log(f"K4 uniform_expand n={ROWS} k={k} total={tot} C=3: equal to "
-            "plain bit for bit")
-    ms["uniform_expand"] = paired_ms(
+    # K4: 2^25 source rows, k = 1, 2, 3 and 7, ragged totals, and source
+    # columns at an odd word offset (not 16-byte aligned).
+    for shift in (0, 1):
+        src = [c[shift:] for c in cols]
+        for k in (1, 2, 3, 7):
+            tot = (ROWS - shift) * k - 5
+            got = expand.uniform_expand(src, k, tot)
+            want = expand.uniform_expand_plain(src, k, tot)
+            torch.cuda.synchronize()
+            err["uniform_expand"] = max(err["uniform_expand"],
+                                        _bit_err(got, want, f"K4 k={k}"))
+            del got, want
+            log(f"K4 uniform_expand n={ROWS - shift} k={k} total={tot} C=3 "
+                f"source offset {shift} words: equal to plain bit for bit")
+    ms["uniform_expand"] = timing(
         lambda: expand.uniform_expand(cols, 2, ROWS * 2),
         lambda: expand.uniform_expand_plain(cols, 2, ROWS * 2),
-    ) + (f"n={ROWS} k=2 C=3",)
+        lambda: [torch.repeat_interleave(c, 2) for c in cols],
+        ROWS * 12 + ROWS * 2 * 12, f"n={ROWS} k=2 C=3")
     # K5: 2^25 nondecreasing indices into 2^25 - 37 rows, with and
     # without a validity mask (a ragged invalid tail).
     src = [c[: ROWS - 37] for c in cols]
@@ -416,10 +487,13 @@ def phase_expand_kernels(expand) -> tuple:
         del got, want
     log(f"K5 sorted_take n_idx={ROWS} n_src={ROWS - 37} C=3, with and "
         "without a mask: equal to plain bit for bit")
-    ms["sorted_take"] = paired_ms(
+    # Bytes: the indices, each distinct source word once, the outputs.
+    ms["sorted_take"] = timing(
         lambda: expand.sorted_take(src, idx),
         lambda: expand.sorted_take_plain(src, idx),
-    ) + (f"n_idx={ROWS} C=3",)
+        lambda: [torch.index_select(c, 0, idx) for c in src],
+        ROWS * 8 + torch.unique_consecutive(idx).numel() * 12 + ROWS * 12,
+        f"n_idx={ROWS} C=3")
     return err, ms
 
 
@@ -671,8 +745,10 @@ def phase_ptxas(_build) -> None:
 
 def main(argv: list) -> int:
     profile = "--profile" in argv
-    if set(argv) - {"--profile"}:
-        print("usage: python3 chip_smoke.py [--profile]", file=sys.stderr)
+    kernels_only = "--kernels" in argv
+    if set(argv) - {"--profile", "--kernels"}:
+        print("usage: python3 chip_smoke.py [--profile | --kernels]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -682,7 +758,6 @@ def main(argv: list) -> int:
     from warpdb_tpu_torch.ops import expand
     from warpdb_tpu_torch.ops import group_kernel as group
     from warpdb_tpu_torch.ops import topk_kernel as topk
-    from warpdb_tpu_torch.ops.sort import top_k_values
     from warpdb_tpu_torch.storage import HostTable
 
     name = card()
@@ -695,9 +770,21 @@ def main(argv: list) -> int:
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])}) "
         + ", ".join(f"{k}={v}" for k, v in libs.items()))
 
-    err = phase_kernels(topk, group)
+    err, kms = phase_kernels(topk, group)
     xerr, xms = phase_expand_kernels(expand)
     err.update(xerr)
+    kms.update(xms)
+    torch.cuda.empty_cache()
+    log(f"kernel timing on {name} (CUDA events, mean of 20 launches; "
+        f"bound at {HBM_TB_S} TB/s):")
+    for kname, t in kms.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']!r} ms"
+        log(f"  {kname} {t['shape']}: kernel {t['ms']!r} ms, plain "
+            f"{t['plain_ms']!r} ms, library {lib}, bound {t['bound_ms']!r} "
+            f"ms = {100 * t['bound_ms'] / t['ms']!r}% [{name}]")
+    if kernels_only:
+        phase_ptxas(_build)
+        return 0
     phase_inf_group(WarpDB, HostTable, group)
 
     t0 = time.perf_counter()
@@ -726,16 +813,32 @@ def main(argv: list) -> int:
     queries = [("expr", n, q) for n, q in EXPR_QUERIES] + [
         ("sql", n, q) for n, q in SQL_QUERIES
     ]
+    kernels = {"topk": topk.topk_candidates,
+               "group_hist": group.group_counts_sums,
+               "windowed_expand": expand.windowed_expand,
+               "uniform_expand": expand.uniform_expand,
+               "sorted_take": expand.sorted_take}
+
+    def run_counted(qs) -> tuple:
+        """Each query's result and the kernel launches it made."""
+        res, per = {}, {}
+        for kind, n, q in qs:
+            before = {k: fn.launches for k, fn in kernels.items()}
+            res[n] = run(kind, q)
+            per[n] = {k: fn.launches - before[k] for k, fn in kernels.items()
+                      if fn.launches > before[k]}
+        return res, per
+
     topk.topk_candidates.launches = 0
     group.group_counts_sums.launches = 0
-    results = {n: run(kind, q) for kind, n, q in queries}
+    results, per_query = run_counted(queries)
     torch.cuda.synchronize()
     launches = {"topk": topk.topk_candidates.launches,
                 "group_hist": group.group_counts_sums.launches}
     for kind, n, q in queries:
         e = check(n, results[n], want[n])
         log(f"slice {n}: agrees with numpy ({len(results[n])} values, "
-            f"max abs err {e!r}) — {q}")
+            f"max abs err {e!r}; launches {per_query[n]}) — {q}")
     for k, c in launches.items():
         if c <= 0:
             raise AssertionError(f"kernel {k} was not launched by the slice")
@@ -757,17 +860,14 @@ def main(argv: list) -> int:
     for fn in (expand.windowed_expand, expand.uniform_expand,
                expand.sorted_take):
         fn.launches = 0
-    jres = {n: run(kind, q) for kind, n, q in join_queries}
+    jres, per_query = run_counted(join_queries)
     torch.cuda.synchronize()
-    launches.update({
-        "windowed_expand": expand.windowed_expand.launches,
-        "uniform_expand": expand.uniform_expand.launches,
-        "sorted_take": expand.sorted_take.launches,
-    })
+    # K1 and K2 count on from the slice phase; K3-K5 from 0.
+    launches = {k: fn.launches for k, fn in kernels.items()}
     for kind, n, q in join_queries:
         e = check(n, jres[n], jwant[n])
         log(f"join {n}: agrees with numpy ({len(jres[n])} values, max abs "
-            f"err {e!r}) — {q}" + (" [eager rewrite off]"
+            f"err {e!r}; launches {per_query[n]}) — {q}" + (" [eager rewrite off]"
                                    if kind == "sql-no-eager" else ""))
     for k in ("windowed_expand", "uniform_expand", "sorted_take"):
         if launches[k] <= 0:
@@ -787,64 +887,35 @@ def main(argv: list) -> int:
         log(f"  query {n}: median {sorted(ts)[2] * 1e3!r} ms over 5 warm runs "
             f"[{name}]")
 
-    kernels = {"topk": topk.topk_candidates,
-               "group_hist": group.group_counts_sums,
-               "windowed_expand": expand.windowed_expand,
-               "uniform_expand": expand.uniform_expand,
-               "sorted_take": expand.sorted_take}
     tpch_launches, tpch_run, tpch_queries = phase_tpch(WarpDB, HostTable,
                                                        kernels, name)
     for k, c in tpch_launches.items():
         launches[k] += c
-
-    cols = db.table.row_columns()
-    u = cols["price"]
-    # Both sides give the final top-k: K1 plus the torch.topk finish over
-    # its candidates, against one torch.topk over the column.
-    k_ms, k_plain = paired_ms(lambda: top_k_values(u, None, 16, False),
-                              lambda: topk.topk_candidates_plain(u, 16))
-    k_alone = cuda_ms(lambda: topk.topk_candidates(u, 16))
-    gid = cols["k"].to(torch.int32)
-    price = cols["price"]
-    g_ms, g_plain = paired_ms(
-        lambda: group.group_counts_sums(gid, [price], KEY_SLOTS),
-        lambda: group.group_counts_sums_plain(gid, [price], KEY_SLOTS),
-    )
-    log(f"  K1 top-k n={ROWS} k=16: kernel + finish {k_ms!r} ms (kernel "
-        f"alone {k_alone!r} ms), plain torch.topk {k_plain!r} ms [{name}]")
-    log(f"  K2 group histogram n={ROWS} slots={KEY_SLOTS} nv=1: kernel "
-        f"{g_ms!r} ms, plain bincount+index_add_ {g_plain!r} ms [{name}]")
-
-    for kname, (x_ms, x_plain, shape) in xms.items():
-        log(f"  {kname} {shape}: kernel {x_ms!r} ms, plain {x_plain!r} ms "
-            f"[{name}]")
 
     if profile:
         phase_profile(run, queries + join_queries, name)
         phase_profile(tpch_run, tpch_queries, name)
         phase_ptxas(_build)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    for mod in ("jax", "warpdb_tpu"):
+        if mod in sys.modules:
+            raise AssertionError(f"the port imported {mod}")
 
+    replaces = {"topk": ("topk_candidates", "pallas_topk.py:94"),
+                "group_hist": ("group_counts_sums", "pallas_group.py:139"),
+                "windowed_expand": ("windowed_expand", "pallas_expand.py:302"),
+                "uniform_expand": ("uniform_expand", "pallas_expand.py:416"),
+                "sorted_take": ("sorted_take", "pallas_expand.py:134")}
     record = {"kernels": [
-        {"name": "topk_candidates", "route": "cuda",
-         "source": "warpdb_tpu_torch/csrc/topk.cu",
-         "replaces": "warpdb_tpu/ops/pallas_topk.py:84",
-         "launches": launches["topk"], "max_abs_err": err["topk"],
-         "ms": k_ms, "plain_ms": k_plain},
-        {"name": "group_counts_sums", "route": "cuda",
-         "source": "warpdb_tpu_torch/csrc/group_hist.cu",
-         "replaces": "warpdb_tpu/ops/pallas_group.py:101",
-         "launches": launches["group_hist"],
-         "max_abs_err": err["group_hist"], "ms": g_ms, "plain_ms": g_plain},
-        *({"name": kname, "route": "cuda",
-           "source": f"warpdb_tpu_torch/csrc/{kname}.cu",
-           "replaces": f"warpdb_tpu/ops/pallas_expand.py:{line}",
-           "launches": launches[kname], "max_abs_err": err[kname],
-           "ms": xms[kname][0], "plain_ms": xms[kname][1]}
-          for kname, line in (("windowed_expand", 234),
-                              ("uniform_expand", 360), ("sorted_take", 90))),
+        {"name": fn, "route": "cuda",
+         "source": f"warpdb_tpu_torch/csrc/{kname}.cu",
+         "replaces": f"warpdb_tpu/ops/{where}",
+         "launches": launches[kname], "max_abs_err": err[kname],
+         "ms": kms[kname]["ms"], "plain_ms": kms[kname]["plain_ms"],
+         "bound_ms": kms[kname]["bound_ms"], "bound_by": "bytes",
+         "library_ms": kms[kname]["library_ms"],
+         "lib_ms": kms[kname]["library_ms"]}
+        for kname, (fn, where) in replaces.items()
     ]}
     print(json.dumps(record))
     print(name)

@@ -1,5 +1,8 @@
 """build_evaluator and optimizer parity between the JAX package and the
-port: the same expression over the same columns gives the same values."""
+port: the same expression text, parsed by each package's own frontend,
+over the same columns gives the same values."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -9,8 +12,8 @@ import jax.numpy as jnp
 
 from warpdb_tpu.engine import optimizer as ref_opt
 from warpdb_tpu.engine.compiler import build_evaluator as ref_build
-from warpdb_tpu.frontend import parse_expression_text
-from warpdb_tpu.storage import HostTable
+from warpdb_tpu.frontend import parse_expression_text as ref_parse
+from warpdb_tpu.storage import HostTable as RefHostTable
 from warpdb_tpu.storage.table import DeviceTable as RefDeviceTable
 from warpdb_tpu_torch.engine import optimizer as port_opt
 from warpdb_tpu_torch.engine.compiler import (
@@ -18,7 +21,8 @@ from warpdb_tpu_torch.engine.compiler import (
     cache_stats,
     compile_filter_project,
 )
-from warpdb_tpu_torch.storage import DeviceTable
+from warpdb_tpu_torch.frontend import parse_expression_text
+from warpdb_tpu_torch.storage import DeviceTable, HostTable
 
 N = 2048
 
@@ -99,7 +103,8 @@ TRANSCENDENTAL = [
 
 def _eval_both(text):
     node = parse_expression_text(text)
-    ref = np.asarray(ref_build(node)({k: jnp.asarray(v) for k, v in COLS.items()}))
+    ref = np.asarray(ref_build(ref_parse(text))(
+        {k: jnp.asarray(v) for k, v in COLS.items()}))
     got = build_evaluator(node)({k: torch.from_numpy(v) for k, v in COLS.items()})
     got = got.numpy()
     ref = np.broadcast_to(ref, (N,)) if ref.ndim == 0 else ref
@@ -161,14 +166,16 @@ OPT_EXPRS = [
 
 @pytest.mark.parametrize("text", OPT_EXPRS)
 def test_optimizer_matches_reference(text):
-    host = HostTable.from_dict(COLS)
-    stats = RefDeviceTable.from_host(host).stats
-    assert DeviceTable.from_host(host, device="cpu").stats == stats
-    node = parse_expression_text(text)
+    ref_stats = RefDeviceTable.from_host(RefHostTable.from_dict(COLS)).stats
+    stats = DeviceTable.from_host(HostTable.from_dict(COLS), device="cpu").stats
+    assert ({k: dataclasses.astuple(v) for k, v in stats.items()}
+            == {k: dataclasses.astuple(v) for k, v in ref_stats.items()})
+    node, ref_node = parse_expression_text(text), ref_parse(text)
     assert port_opt.fold_constants(node).canonical() == (
-        ref_opt.fold_constants(node).canonical()
+        ref_opt.fold_constants(ref_node).canonical()
     )
-    assert port_opt.expr_range(node, stats) == ref_opt.expr_range(node, stats)
+    assert port_opt.expr_range(node, stats) == ref_opt.expr_range(
+        ref_node, ref_stats)
     assert port_opt.analyze_condition(node, stats) == (
-        ref_opt.analyze_condition(node, stats)
+        ref_opt.analyze_condition(ref_node, ref_stats)
     )

@@ -218,6 +218,65 @@ def test_uniform_expand_matches_plain(cuda, k):
     _equal_bits(got, want)
 
 
+def _edge_counts(case: str) -> np.ndarray:
+    """Emission counts of K3's edge cases: long runs of zero-count rows
+    (a tile whose owners span thousands of rows), one row owning every
+    output, a single probe row, and a ragged total."""
+    rng = np.random.default_rng(46)
+    if case == "zero_runs":
+        counts = np.zeros(300_000, np.int64)
+        counts[::7919] = rng.integers(1, 4, counts[::7919].shape[0])
+    elif case == "one_owner":
+        counts = np.zeros(100_000, np.int64)
+        counts[777] = 300_001
+    elif case == "one_row":
+        counts = np.array([5003])
+    else:
+        counts = rng.integers(0, 4, (1 << 20) + 3)
+        counts[-1] = 3 - counts[:-1].sum() % 2  # an odd total
+    return counts
+
+
+@pytest.mark.parametrize("ncols", [1, 16])
+@pytest.mark.parametrize("owner", [True, False])
+@pytest.mark.parametrize("case", ["zero_runs", "one_owner", "one_row",
+                                  "ragged"])
+def test_windowed_expand_edges_match_plain(cuda, case, owner, ncols):
+    counts = _edge_counts(case)
+    n, total = counts.shape[0], int(counts.sum())
+    offsets = torch.from_numpy(np.cumsum(counts) - counts).to(cuda)
+    f, i = _words(n, 47)
+    cols = [torch.from_numpy(f if c % 2 else i).to(cuda) for c in range(ncols)]
+    before = expand.windowed_expand.launches
+    own, dup, got = expand.windowed_expand(offsets, cols, total, owner=owner)
+    pown, pdup, want = expand.windowed_expand_plain(offsets, cols, total,
+                                                    owner=owner)
+    torch.cuda.synchronize()
+    assert expand.windowed_expand.launches == before + 1
+    assert torch.equal(dup, pdup)
+    assert (own is None) == (not owner)
+    if owner:
+        assert torch.equal(own, pown)
+    _equal_bits(got, want)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("k", [1, 2, 3, 7])
+def test_uniform_expand_edges_match_plain(cuda, k, shift):
+    """Any k, a ragged total, and source columns at an odd word offset
+    (not 16-byte aligned)."""
+    n = 250_003
+    f, i = _words(n + shift, 48)
+    cols = [torch.from_numpy(f).to(cuda)[shift:],
+            torch.from_numpy(i).to(cuda)[shift:]]
+    assert (cols[0].data_ptr() % 16 != 0) == bool(shift)
+    for total in (n * k - 3, n * k, 5):
+        got = expand.uniform_expand(cols, k, total)
+        want = expand.uniform_expand_plain(cols, k, total)
+        torch.cuda.synchronize()
+        _equal_bits(got, want)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_sorted_take_matches_plain(cuda, masked):
     rng = np.random.default_rng(44)

@@ -13,7 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from warpdb_tpu.errors import ExecutionError
+from warpdb_tpu_torch.errors import ExecutionError
 from warpdb_tpu_torch.ops import expand
 from warpdb_tpu_torch.ops.join import join_match_counts
 

@@ -1,4 +1,5 @@
-"""warpdb_tpu_torch imports no JAX and states its device explicitly."""
+"""warpdb_tpu_torch imports neither JAX nor warpdb_tpu and states its
+device explicitly."""
 
 import pathlib
 import re
@@ -8,13 +9,14 @@ import sys
 import pytest
 import torch
 
-from warpdb_tpu.errors import ExecutionError
+from warpdb_tpu_torch.errors import ExecutionError
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-_BLOCKED_JAX = """
+_BLOCKED = """
 import sys
-sys.modules["jax"] = None          # any `import jax` now raises
+for name in BLOCKED:
+    sys.modules[name] = None       # any import of it now raises
 import numpy as np
 from warpdb_tpu_torch import WarpDB
 db = WarpDB("data/test.csv", device="cpu")
@@ -41,24 +43,47 @@ table = db.query_sql_table(
     "AS d) AND EXISTS (SELECT 1 FROM other WHERE other.quantity = "
     "test.quantity) ORDER BY price DESC")
 assert table == {"price": [20.0], "quantity": [4.0]}, table
-assert "jax" not in sys.modules or sys.modules["jax"] is None
+assert db.query_sql("SELECT COUNT(*) FROM test GROUP BY quantity") == [1.0] * 4
+for name in BLOCKED:
+    assert sys.modules[name] is None
 print("ok")
 """
 
 
-def test_port_runs_with_jax_blocked():
+def _run_blocked(*modules: str) -> None:
+    """The slice (a GROUP BY, top-k, joins, subqueries, a CTE and a set
+    operation) on the CPU in a fresh interpreter with ``modules``
+    blocked."""
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_JAX], cwd=REPO,
-        capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", f"BLOCKED = {modules!r}\n" + _BLOCKED],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_runs_with_jax_blocked():
+    _run_blocked("jax")
+
+
+def test_port_runs_with_jax_and_warpdb_tpu_blocked():
+    _run_blocked("jax", "warpdb_tpu")
 
 
 def test_no_jax_import_in_package():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
     files = sorted((REPO / "warpdb_tpu_torch").rglob("*.py"))
     assert files
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_no_warpdb_tpu_import_in_package():
+    """The port keeps its own copies of the reference's host modules."""
+    pattern = re.compile(r"^\s*(from|import)\s+warpdb_tpu(\.|\s|$)",
+                         re.MULTILINE)
+    files = sorted((REPO / "warpdb_tpu_torch").rglob("*.py"))
+    assert len(files) > 20
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 

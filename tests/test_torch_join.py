@@ -20,16 +20,18 @@ import pytest
 
 from warpdb_tpu import WarpDB as RefDB
 from warpdb_tpu.config import get_config as ref_config
-from warpdb_tpu.errors import UnsupportedError
-from warpdb_tpu.storage import HostTable
+from warpdb_tpu.storage import HostTable as RefHostTable
 from warpdb_tpu_torch import WarpDB as PortDB
 from warpdb_tpu_torch.config import get_config as port_config
+from warpdb_tpu_torch.errors import UnsupportedError
+from warpdb_tpu_torch.storage import HostTable
 
 N = 6000
 WIDE = 2**53 + 1
 
 
-def _tables() -> dict:
+def _tables(host_table=HostTable) -> dict:
+    """The tables as ``host_table``s (the port's, or the reference's)."""
     rng = np.random.default_rng(77)
     nv = rng.uniform(0, 10, N).astype(np.float32)
     nv[::41] = np.nan
@@ -98,7 +100,7 @@ def _tables() -> dict:
         "fv": np.float32([7.0, 2.0**53, 2.0**35, 3.0]),
         "fw2": np.float32([1, 2, 3, 4]),
     }
-    return {name: HostTable.from_dict(cols) for name, cols in [
+    return {name: host_table.from_dict(cols) for name, cols in [
         ("t", t), ("dim", dim), ("uniq", uniq), ("dup", dup),
         ("multi", multi), ("fr", fr), ("wd", wd), ("wr", wr),
         ("bigd", bigd), ("comp", comp), ("tiny", tiny), ("wf", wf),
@@ -113,11 +115,12 @@ def tables():
 
 @pytest.fixture(scope="module")
 def dbs(tables):
-    ref = RefDB(tables["t"])
+    ref_tables = _tables(RefHostTable)
+    ref = RefDB(ref_tables["t"])
     port = PortDB(tables["t"], device="cpu")
     for name, host in tables.items():
         if name != "t":
-            ref.register_table(name, host)
+            ref.register_table(name, ref_tables[name])
             port.register_table(name, host)
     return ref, port
 

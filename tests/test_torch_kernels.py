@@ -15,7 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from warpdb_tpu.errors import ExecutionError
+from warpdb_tpu_torch.errors import ExecutionError
 from warpdb_tpu_torch.ops import group_kernel, topk_kernel
 from warpdb_tpu_torch.ops.sort import top_k_values
 

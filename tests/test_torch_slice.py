@@ -1,6 +1,7 @@
-"""Differential harness of the single-table slice: one seeded HostTable
-goes through ``warpdb_tpu.WarpDB`` and ``warpdb_tpu_torch.WarpDB(device=
-"cpu")``, and every query must give the same answer.  Integers, codes,
+"""Differential harness of the single-table slice: one seeded dict of
+numpy columns becomes a HostTable of each package and goes through
+``warpdb_tpu.WarpDB`` and ``warpdb_tpu_torch.WarpDB(device="cpu")``, and
+every query must give the same answer.  Integers, codes,
 strings, counts and row order match exactly; float values match to
 rtol 1e-5 (the two packages add sums in different orders)."""
 
@@ -8,22 +9,23 @@ import numpy as np
 import pytest
 
 from warpdb_tpu import WarpDB as RefDB
-from warpdb_tpu.errors import UnsupportedError, ValidationError
-from warpdb_tpu.storage import HostTable
+from warpdb_tpu.storage import HostTable as RefHostTable
 from warpdb_tpu_torch import WarpDB as PortDB
+from warpdb_tpu_torch.errors import UnsupportedError, ValidationError
+from warpdb_tpu_torch.storage import HostTable
 
 N = 6000
 WIDE = 9007199254740993  # 2^53 + 1
 
 
-def _table() -> HostTable:
+def _data() -> dict:
     rng = np.random.default_rng(2024)
     nv = rng.uniform(0, 10, N).astype(np.float32)
     nv[::53] = np.nan
     wide = rng.choice(
         np.array([-(2**40), 7, 2**35 + 1, WIDE, 2**62], np.int64), N
     )
-    return HostTable.from_dict({
+    return {
         # bench.py's columns (k cut to 6000 slots: the midrange tier)
         "price": rng.uniform(0, 100, N).astype(np.float32),
         "quantity": rng.integers(0, 32, N).astype(np.float32),
@@ -36,13 +38,14 @@ def _table() -> HostTable:
         "nv": nv,
         "s": rng.choice(["apple", "banana", "cherry", "date"], N),
         "wide": wide,
-    })
+    }
 
 
 @pytest.fixture(scope="module")
 def dbs():
-    host = _table()
-    return RefDB(host), PortDB(host, device="cpu")
+    data = _data()
+    return (RefDB(RefHostTable.from_dict(data)),
+            PortDB(HostTable.from_dict(data), device="cpu"))
 
 
 def _same(ref, got, q):
@@ -201,7 +204,7 @@ def test_wide_int64_literal_is_exact(dbs):
     q = "SELECT COUNT(*) FROM t WHERE wide = 9007199254740992"
     truth = 0.0
     assert port.query_sql(q) == [truth]
-    stored = float(np.count_nonzero(_table().get_column("wide").data == WIDE))
+    stored = float(np.count_nonzero(_data()["wide"] == WIDE))
     # Recorded divergence: the reference answers with the count of 2^53+1.
     assert ref.query_sql(q)[0] in (truth, stored)
     q2 = f"SELECT COUNT(*) FROM t WHERE wide = {WIDE}"
@@ -209,8 +212,8 @@ def test_wide_int64_literal_is_exact(dbs):
 
 
 def _distinct_oracle(col, where=None, descending=False):
-    t = _table()
-    v = t.get_column(col).data
+    t = _data()
+    v = t[col]
     if where is not None:
         v = v[where(t)]
     out = np.unique(v)
@@ -224,7 +227,7 @@ def _distinct_oracle(col, where=None, descending=False):
 MIDRANGE_DISTINCT = [
     ("SELECT DISTINCT k FROM t WHERE price < 10",
      lambda: _distinct_oracle(
-         "k", lambda t: t.get_column("price").data < np.float32(10))),
+         "k", lambda t: t["price"] < np.float32(10))),
     ("SELECT DISTINCT ki FROM t ORDER BY ki DESC",
      lambda: _distinct_oracle("ki", descending=True)),
 ]
@@ -252,9 +255,10 @@ def test_midrange_inf_values_match_reference():
     v = rng.uniform(0, 10, n).astype(np.float32)
     v[7] = np.inf
     v[11] = -np.inf
-    host = HostTable.from_dict({"k": k, "v": v})
+    data = {"k": k, "v": v}
     q = "SELECT SUM(v) FROM t GROUP BY k"
-    _same(RefDB(host).query_sql(q), PortDB(host, device="cpu").query_sql(q), q)
+    _same(RefDB(RefHostTable.from_dict(data)).query_sql(q),
+          PortDB(HostTable.from_dict(data), device="cpu").query_sql(q), q)
 
 
 UNSUPPORTED = [

@@ -13,16 +13,38 @@ import numpy as np
 import pytest
 import torch
 
-from warpdb_tpu import WarpDB as RefDB
-from warpdb_tpu.errors import (
+from warpdb_tpu import WarpDB as RefWarpDB
+from warpdb_tpu import errors as ref_errors
+from warpdb_tpu.storage import DataType as RefDataType
+from warpdb_tpu.storage import HostTable as RefHostTable
+from warpdb_tpu_torch import WarpDB as PortDB
+from warpdb_tpu_torch.errors import (
     ExecutionError,
     ParseError,
     UnsupportedError,
     ValidationError,
 )
-from warpdb_tpu.storage import DataType, HostTable
-from warpdb_tpu_torch import WarpDB as PortDB
-from warpdb_tpu_torch.storage import DeviceTable
+from warpdb_tpu_torch.storage import DataType, DeviceTable, HostTable
+
+
+def _ref_table(source):
+    """The reference's HostTable of the same numpy columns and dtypes,
+    built by the reference's own package (a CSV path passes through)."""
+    if isinstance(source, str):
+        return source
+    return RefHostTable.from_dict(
+        {c.name: c.data for c in source.columns},
+        dtypes={c.name: RefDataType(c.dtype.value) for c in source.columns},
+    )
+
+
+def _ref_db(source):
+    return RefWarpDB(_ref_table(source))
+
+
+def _ref_exc(exc):
+    """The reference's error class of the same name as the port's."""
+    return getattr(ref_errors, exc.__name__)
 
 
 def _f(*v):
@@ -143,10 +165,10 @@ def dbs():
     def get(name):
         if name not in made:
             primary, registered = setups[name]
-            pair = RefDB(primary), PortDB(primary, device="cpu")
-            for db in pair:
-                for tname, host in registered.items():
-                    db.register_table(tname, host)
+            pair = _ref_db(primary), PortDB(primary, device="cpu")
+            for tname, host in registered.items():
+                pair[0].register_table(tname, _ref_table(host))
+                pair[1].register_table(tname, host)
             made[name] = pair
         return made[name]
 
@@ -428,7 +450,7 @@ def test_raises_as_reference(dbs, setup, q, exc, match):
     ref, port = dbs(setup)
     with pytest.raises(exc, match=match) as got:
         port.query_sql_table(q)
-    with pytest.raises(exc) as want:
+    with pytest.raises(_ref_exc(exc)) as want:
         ref.query_sql_table(q)
     assert str(got.value) == str(want.value)
 
@@ -444,17 +466,18 @@ def test_in_subquery_limits(kind):
     q = "SELECT c FROM t WHERE c IN (SELECT c FROM t)"
     with pytest.raises(UnsupportedError, match="use a JOIN") as got:
         PortDB(host, device="cpu").query_sql(q)
-    with pytest.raises(UnsupportedError) as want:
-        RefDB(host).query_sql(q)
+    with pytest.raises(ref_errors.UnsupportedError) as want:
+        _ref_db(host).query_sql(q)
     assert str(got.value) == str(want.value)
 
 
 def test_facade_only_features_raise_in_the_executor(dbs):
     """Set operations and CTEs reaching run_query / run_query_table
     raise as the reference's do."""
+    from warpdb_tpu import frontend as ref_frontend
     from warpdb_tpu.engine import executor as ref_ex
-    from warpdb_tpu.frontend import parse_query, tokenize
     from warpdb_tpu_torch.engine import executor as port_ex
+    from warpdb_tpu_torch.frontend import parse_query, tokenize
 
     ref, port = dbs("setop")
     for q in ("SELECT p FROM t UNION SELECT q FROM u",
@@ -463,9 +486,10 @@ def test_facade_only_features_raise_in_the_executor(dbs):
             with pytest.raises(UnsupportedError, match="facade") as got:
                 getattr(port_ex, fn)(parse_query(tokenize(q)), port.table,
                                      port._catalog)
-            with pytest.raises(UnsupportedError) as want:
-                getattr(ref_ex, fn)(parse_query(tokenize(q)), ref.table,
-                                    ref._catalog)
+            with pytest.raises(ref_errors.UnsupportedError) as want:
+                getattr(ref_ex, fn)(
+                    ref_frontend.parse_query(ref_frontend.tokenize(q)),
+                    ref.table, ref._catalog)
             assert str(got.value) == str(want.value)
 
 
@@ -482,9 +506,9 @@ def test_fuzz_correlated_against_oracle(trial):
     uv = rng.normal(0, 10, m).round(1).astype(np.float32)
     host = HostTable.from_dict({"k": k, "val": val})
     u = HostTable.from_dict({"uk": uk, "uv": uv})
-    port, ref = PortDB(host, device="cpu"), RefDB(host)
-    for db in (port, ref):
-        db.register_table("u", u)
+    port, ref = PortDB(host, device="cpu"), _ref_db(host)
+    port.register_table("u", u)
+    ref.register_table("u", _ref_table(u))
     q1 = ("SELECT val FROM t WHERE EXISTS "
           "(SELECT 1 FROM u WHERE uk = k AND uv > 0)")
     got = port.query_sql(q1)
@@ -513,9 +537,9 @@ def test_fuzz_correlated_exists_neq_against_oracle(trial):
     uf = rng.integers(0, 2, m).astype(np.float32)
     host = HostTable.from_dict({"k": k, "s": s})
     u = HostTable.from_dict({"uk": uk, "us": us, "uf": uf})
-    port, ref = PortDB(host, device="cpu"), RefDB(host)
-    for db in (port, ref):
-        db.register_table("u", u)
+    port, ref = PortDB(host, device="cpu"), _ref_db(host)
+    port.register_table("u", u)
+    ref.register_table("u", _ref_table(u))
     q = ("SELECT k FROM t WHERE EXISTS "
          "(SELECT * FROM u WHERE uk = k AND us != s AND uf > 0)")
     got = port.query_sql(q)
@@ -538,9 +562,8 @@ def test_cte_memo_reuses_the_materialisation(dbs):
 
 def test_materialised_tables_land_on_the_base_device(monkeypatch):
     """Every derived, CTE, set-op and decorrelation table is built on the
-    facade's device, named explicitly (the loader's default is the CPU,
-    which on a card would be a hidden fallback), and so are all its
-    columns."""
+    facade's device, named explicitly (the loader's default is the card,
+    which a CPU facade must not reach), and so are all its columns."""
     fact, registered = _seeded()
     port = PortDB(fact, device="cpu")
     for name, host in registered.items():
@@ -583,9 +606,9 @@ def test_in_subquery_wide_ints_compare_as_ints():
     host = HostTable.from_dict({"x": _f(2.0**53, 7.0, 2.0**40)})
     wide = HostTable.from_dict(
         {"w": np.array([2**53 + 1, 7, 2**40], np.int64)})
-    port, ref = PortDB(host, device="cpu"), RefDB(host)
-    for db in (port, ref):
-        db.register_table("wide", wide)
+    port, ref = PortDB(host, device="cpu"), _ref_db(host)
+    port.register_table("wide", wide)
+    ref.register_table("wide", _ref_table(wide))
     q = "SELECT x FROM t WHERE x IN (SELECT w FROM wide)"
     assert port.query_sql(q) == [7.0, 2.0**40]
     assert ref.query_sql(q) in ([7.0, 2.0**40], [2.0**53, 7.0, 2.0**40])
@@ -606,7 +629,7 @@ def test_subquery_keeps_ilike_and_regexp(q, want):
         "s": np.array(["Apple", "apple", "banana", "APRICOT"]),
         "v": _f(1, 2, 3, 4)})
     assert PortDB(host, device="cpu").query_sql(q) == want
-    got = RefDB(host).query_sql(q)
+    got = _ref_db(host).query_sql(q)
     assert got in (want, [2.0], [])  # the recorded reference fault
 
 
@@ -636,16 +659,16 @@ def test_derived_table_alias_resolves(dbs, q):
         np.testing.assert_allclose(got["d.tot"], [a for a, _ in want],
                                    rtol=1e-5)
         np.testing.assert_array_equal(got["dim.w"], [b for _, b in want])
-    with pytest.raises(ValidationError, match="Unknown table: d"):
+    with pytest.raises(ref_errors.ValidationError, match="Unknown table: d"):
         ref.query_sql_table(q)
 
 
 def _nan_keys():
     t = HostTable.from_dict({"k": _f(1, np.nan, 3, 4)})
     u = HostTable.from_dict({"uk": _f(np.nan, 1, 4), "uv": _f(1, 2, 3)})
-    port, ref = PortDB(t, device="cpu"), RefDB(t)
-    for db in (port, ref):
-        db.register_table("u", u)
+    port, ref = PortDB(t, device="cpu"), _ref_db(t)
+    port.register_table("u", u)
+    ref.register_table("u", _ref_table(u))
     return port, ref
 
 
@@ -673,13 +696,13 @@ def test_decorrelation_memo_keys_on_output_names():
     "Unknown column: __corr0.__v0".  The port keys on the names."""
     t = HostTable.from_dict({"k": _f(1, 2, 3, 4)})
     u = HostTable.from_dict({"uk": _f(2, 1, 4, 4)})
-    port, ref = PortDB(t, device="cpu"), RefDB(t)
-    for db in (port, ref):
-        db.register_table("u", u)
+    port, ref = PortDB(t, device="cpu"), _ref_db(t)
+    port.register_table("u", u)
+    ref.register_table("u", _ref_table(u))
     first = "SELECT k FROM t WHERE EXISTS (SELECT 1 FROM u WHERE uk = k)"
     second = "SELECT (SELECT COUNT(*) FROM u WHERE uk = k) AS n FROM t"
     _same_table(ref.query_sql_table(first), port.query_sql_table(first),
                 first)
     assert port.query_sql_table(second) == {"n": [1.0, 1.0, 0.0, 2.0]}
-    with pytest.raises(ValidationError, match="__corr0.__v0"):
+    with pytest.raises(ref_errors.ValidationError, match="__corr0.__v0"):
         ref.query_sql_table(second)

@@ -2,8 +2,9 @@
 
 The same ``WarpDB`` facade, SQL and results as ``warpdb_tpu``, on torch
 tensors, with the TPU's Pallas kernels rewritten as CUDA kernels for
-Hopper (``csrc/``).  The port imports the JAX-free host modules of
-``warpdb_tpu`` (errors, frontend, host storage) and never imports JAX.
+Hopper (``csrc/``).  The port keeps its own copies of the reference's
+host modules (errors, frontend, host storage) and imports neither JAX
+nor ``warpdb_tpu``.
 
     from warpdb_tpu_torch import WarpDB
     db = WarpDB("data/test.csv", device="cuda")   # device=None means cuda
@@ -13,7 +14,7 @@ Hopper (``csrc/``).  The port imports the JAX-free host modules of
 ``device="cpu"`` runs the kernels' plain PyTorch versions, for tests.
 """
 
-from warpdb_tpu.errors import (
+from .errors import (
     ExecutionError,
     ParseError,
     TokenizeError,
@@ -21,13 +22,13 @@ from warpdb_tpu.errors import (
     ValidationError,
     WarpDBError,
 )
-from warpdb_tpu.storage.table import DataType
+from .storage.table import DataType
 
 __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # Lazy: ``import warpdb_tpu_torch`` imports torch only when the
+    # Lazy: ``import warpdb_tpu_torch`` loads the engine only when the
     # facade is first used.
     if name == "WarpDB":
         from .api import WarpDB

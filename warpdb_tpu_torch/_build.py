@@ -19,7 +19,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from warpdb_tpu.errors import ExecutionError
+from .errors import ExecutionError
 
 __all__ = ["KERNELS", "build_all", "load", "build_dir", "source_path"]
 
@@ -45,10 +45,10 @@ KERNELS = {
     ),
     "windowed_expand": (
         "warpdb_windowed_expand",
-        [_P, _LL, _LL, _P, _I, _P, _LL, _P, _P, _P],
+        [_P, _LL, _LL, _P, _I, _P, _LL, _P, _P, _P, _LL, _P],
     ),
     "uniform_expand": (
-        "warpdb_uniform_expand", [_P, _I, _LL, _LL, _P, _LL, _I, _P],
+        "warpdb_uniform_expand", [_P, _I, _LL, _LL, _LL, _P, _LL, _P],
     ),
     "sorted_take": (
         "warpdb_sorted_take", [_P, _I, _P, _P, _LL, _P, _LL, _I, _P],

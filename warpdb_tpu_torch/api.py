@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from warpdb_tpu.errors import (
+from .errors import (
     ExecutionError,
     ParseError,
     TokenizeError,
@@ -29,16 +29,15 @@ from warpdb_tpu.errors import (
     ValidationError,
     WarpDBError,
 )
-from warpdb_tpu.frontend import (
+from .frontend import (
     parse_expression,
     parse_query,
     tokenize,
     validate_expression,
     validate_query,
 )
-from warpdb_tpu.frontend.ast import Star, unalias
-from warpdb_tpu.storage import DataType, HostTable, load_table
-
+from .frontend.ast import Star, unalias
+from .storage import DataType, HostTable, load_table
 from .storage.table import DeviceTable
 
 __all__ = ["WarpDB", "resolve_device", "decode_result_column"]
@@ -102,7 +101,7 @@ def decode_result_column(item, values: np.ndarray, table, catalog=None,
     string scalar function; other columns pass through as numbers.
     ``table`` is the FROM relation; ``catalog`` and ``joins`` (the
     statement's JOIN clauses) resolve columns of joined relations."""
-    from warpdb_tpu.frontend.ast import (
+    from .frontend.ast import (
         Aggregation,
         AggregationType,
         CodeMap,
@@ -110,9 +109,8 @@ def decode_result_column(item, values: np.ndarray, table, catalog=None,
         Variable,
         unalias,
     )
-    from warpdb_tpu.storage.strfuncs import is_string_func
-    from warpdb_tpu.storage.strings import decode_codes
-
+    from .storage.strfuncs import is_string_func
+    from .storage.strings import decode_codes
     from .engine.executor import bind_strings
 
     node = unalias(item)
@@ -164,7 +162,7 @@ class WarpDB:
             self._host = filepath_or_table
             self._name = "table"
         elif type(filepath_or_table).__module__.startswith("pyarrow"):
-            from warpdb_tpu.storage.arrow import host_table_from_arrow
+            from .storage.arrow import host_table_from_arrow
 
             self._host = host_table_from_arrow(filepath_or_table)
             self._name = "table"

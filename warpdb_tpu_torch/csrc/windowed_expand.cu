@@ -10,20 +10,32 @@
 // inside a 2048-row VMEM window and selects with a one-hot MXU product over
 // bf16 byte planes, so it needs a host gate proving every block's owners
 // fit the window, with a general scatter + gather as the other branch.
-// Here each block of 1024 outputs finds the owners of its first and last
-// row with a warp-wide 32-ary search over the whole offsets array, then
-// each thread binary-searches its outputs' owners inside that range.  Any
-// offsets work: there is no span gate and no fallback.
 //
-// Bound: device-memory bandwidth on the written rows (8 bytes of owner and
-// dup plus 4 per column) and the gathered words.  Writes are coalesced;
-// owners are nondecreasing in r, so the gathers of neighbouring threads hit
-// the same or neighbouring words.  The searches read offsets that a dense
-// expansion keeps in L1 (a block's owners span at most 1024 rows with
-// nonzero counts).  Words move as unsigned ints, so the copy is bit-exact.
+// Bound: device-memory bandwidth (8 bytes of offset per probe row, 4 per
+// column of each emitting row, 8 of owner and dup plus 4 per column per
+// output).  The design keeps every access coalesced and takes the searches
+// off device memory: a load-balanced expansion by merge path, as CUB's
+// run-length decode and moderngpu's load-balancing search do.
 //
-// Launches on the caller's stream, allocates nothing, returns
-// cudaGetLastError().
+// * The merged sequence of probe rows and outputs (row i >= 1 sorts before
+//   output r when offsets[i] <= r) is cut into tiles of kTile items.  A
+//   small partition kernel finds each tile's split (outputs before it) by
+//   one binary search over device memory per tile.
+// * A tile's rows are contiguous, [b0, b1].  The block copies their
+//   offsets and the words of up to kGroup columns at them into shared
+//   memory with asynchronous copies (cp.async): one round trip to device
+//   memory per tile, all loads in flight together, no registers held.
+// * Each thread merges its kPerThread items serially in shared memory and
+//   records each output's owner there.  Runs of zero-count rows cost one
+//   merged item each, so a tile whose owners span many rows (the
+//   unmatched probe rows of an inner join) is no larger than any other.
+// * Every output is written by consecutive threads from shared memory:
+//   coalesced stores, no gather from device memory.  More than kGroup
+//   columns take one more round trip per group.
+//
+// Words move as unsigned ints, so the copy is bit-exact.  Launches on the
+// caller's stream, allocates nothing (`part` is the caller's scratch of
+// one int64 per tile and one more), returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -31,71 +43,146 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPerThread = 4;
-constexpr int kBlock = kThreads * kPerThread;
+constexpr int kTile = kThreads * kPerThread;
 constexpr int kMaxCols = 16;
+// Columns staged in shared memory together (the first group with the
+// tile's offsets, in one round trip).
+constexpr int kGroup = 4;
 
 struct Cols {
   const unsigned* src[kMaxCols];
 };
 
-// First index in [lo, hi) whose offset exceeds r (hi when none), found by
-// all 32 lanes of a warp: each round probes 32 evenly spaced positions.
-__device__ long long warp_upper_bound(const long long* __restrict__ off,
-                                      long long lo, long long hi,
-                                      long long r) {
-  const int lane = threadIdx.x & 31;
-  while (hi - lo > 32) {
-    const long long step = (hi - lo + 31) / 32;
-    const long long pos = lo + (lane + 1) * step - 1;
-    const bool le = pos < hi && __ldg(off + pos) <= r;
-    const long long m = __popc(__ballot_sync(0xffffffffu, le));
-    const long long nlo = min(lo + m * step, hi);
-    hi = min(lo + (m + 1) * step - 1, hi);
-    lo = nlo;
+// Outputs among the first d merged items: the merge path of outputs
+// A[a] = a against row starts B[j] = off[1 + j], rows first on ties.
+__global__ void __launch_bounds__(kThreads)
+partition_kernel(const long long* __restrict__ off, long long n,
+                 long long total, long long items, long long tiles,
+                 long long* __restrict__ part) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t > tiles) return;
+  const long long d = min(t * kTile, items);
+  long long lo = max(0ll, d - (n - 1)), hi = min(d, total);
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (mid < __ldg(off + d - mid)) {  // off[1 + (d - 1 - mid)]
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
   }
-  const long long pos = lo + lane;
-  const bool le = pos < hi && __ldg(off + pos) <= r;
-  return lo + __popc(__ballot_sync(0xffffffffu, le));
+  part[t] = lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
-windowed_expand_kernel(const long long* __restrict__ off, long long n,
-                       long long total, Cols cols, int ncols,
-                       unsigned* __restrict__ out, long long out_stride,
-                       int* __restrict__ owner_out,
-                       int* __restrict__ dup_out) {
-  __shared__ long long s_first, s_last;
-  const long long base = (long long)blockIdx.x * kBlock;
-  const long long last = min(base + kBlock, total) - 1;
-  const int warp = threadIdx.x >> 5;
-  if (warp < 2) {
-    const long long p = warp_upper_bound(off, 0, n, warp == 0 ? base : last) - 1;
-    if ((threadIdx.x & 31) == 0) (warp == 0 ? s_first : s_last) = p;
+// Asynchronous copies from device to shared memory (cp.async): a tile's
+// loads are all in flight at once and hold no registers.
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(kBytes));
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows b0 .. b0 + nb of one array into shared memory.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long b0,
+                                      int nb) {
+  for (int j = threadIdx.x; j <= nb; j += kThreads) {
+    copy_async<sizeof(T)>(dst + j, src + b0 + j);
   }
-  __syncthreads();
-  long long lo = s_first;
-  const long long end = s_last + 1;
+}
+
+// Columns c0 .. c0 + kGroup - 1 (those below ncols) into their slots.
+__device__ __forceinline__ void stage_group(unsigned* s_col, const Cols& cols,
+                                            int c0, int ncols, long long b0,
+                                            int nb) {
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const long long r = base + threadIdx.x + (long long)j * kThreads;
-    if (r > last) break;
-    // off[lo] <= r, and the owner lies in [lo, end).
-    long long a = lo + 1, b = end;
-    while (a < b) {
-      const long long mid = (a + b) >> 1;
-      if (__ldg(off + mid) <= r) {
-        a = mid + 1;
+  for (int q = 0; q < kGroup; ++q) {
+    if (c0 + q < ncols) stage(s_col + q * (kTile + 1), cols.src[c0 + q], b0, nb);
+  }
+}
+
+// Dynamic shared memory: offsets (kTile + 1 int64), owners (kTile int32),
+// then min(ncols, kGroup) column slots of kTile + 1 words.
+__global__ void __launch_bounds__(kThreads)
+windowed_expand_kernel(const long long* __restrict__ off, long long items,
+                       const long long* __restrict__ part, Cols cols,
+                       int ncols, unsigned* __restrict__ out,
+                       long long out_stride, int* __restrict__ owner_out,
+                       int* __restrict__ dup_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* s_off = reinterpret_cast<long long*>(smem);
+  int* s_own = reinterpret_cast<int*>(s_off + kTile + 1);
+  unsigned* s_col = reinterpret_cast<unsigned*>(s_own + kTile);
+
+  const long long d0 = (long long)blockIdx.x * kTile;
+  const long long d1 = min(d0 + kTile, items);
+  const long long a0 = __ldg(part + blockIdx.x);
+  const long long b0 = d0 - a0;
+  const int na = (int)(__ldg(part + blockIdx.x + 1) - a0);
+  const int nb = (int)(d1 - d0) - na;
+  const int tid = threadIdx.x;
+
+  // The tile's rows b0 .. b0 + nb: their offsets and the first columns.
+  stage(s_off, off, b0, nb);
+  stage_group(s_col, cols, 0, ncols, b0, nb);
+  wait_copies();
+  __syncthreads();
+
+  // Each thread merges items [dt, dt + kPerThread) of the tile: find its
+  // split, then walk, taking row j + 1 while its offset is <= the next
+  // output.  s_off[1 + j] is row b0 + 1 + j's offset.
+  const int dt = min(tid * kPerThread, na + nb);
+  int lo = max(0, dt - nb), hi = min(dt, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a0 + mid < s_off[dt - mid]) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int a = lo, b = dt - lo;
+  const int end = min(dt + kPerThread, na + nb);
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    if (a + b < end) {
+      if (b < nb && (a >= na || s_off[b + 1] <= a0 + a)) {
+        ++b;
       } else {
-        b = mid;
+        s_own[a++] = b;
       }
     }
-    const long long owner = a - 1;
-    lo = owner;
-    if (owner_out != nullptr) owner_out[r] = (int)owner;
-    if (dup_out != nullptr) dup_out[r] = (int)(r - __ldg(off + owner));
+  }
+  __syncthreads();
+
+  for (int i = tid; i < na; i += kThreads) {
+    const int o = s_own[i];
+    const long long r = a0 + i;
+    if (dup_out != nullptr) dup_out[r] = (int)(r - s_off[o]);
+    if (owner_out != nullptr) owner_out[r] = (int)(b0 + o);
+  }
 #pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      if (c < ncols) out[c * out_stride + r] = __ldg(cols.src[c] + owner);
+  for (int c0 = 0; c0 < kMaxCols; c0 += kGroup) {
+    if (c0 < ncols) {
+      if (c0 > 0) {  // the next group, once the last one is written
+        __syncthreads();
+        stage_group(s_col, cols, c0, ncols, b0, nb);
+        wait_copies();
+        __syncthreads();
+      }
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        if (c0 + q < ncols) {
+          const unsigned* words = s_col + q * (kTile + 1);
+          unsigned* dst = out + (c0 + q) * out_stride + a0;
+          for (int i = tid; i < na; i += kThreads) dst[i] = words[s_own[i]];
+        }
+      }
     }
   }
 }
@@ -104,13 +191,18 @@ windowed_expand_kernel(const long long* __restrict__ off, long long n,
 
 // offsets: int64[n], nondecreasing, offsets[0] == 0, every offset <= total;
 // src: host array of ncols device pointers; out: ncols rows of out_stride
-// words; owner and dup (int32[total]) may be null.
+// words; owner and dup (int32[total]) may be null; part: scratch of
+// part_len >= ceil((total + n - 1) / 1024) + 1 int64.
 extern "C" int warpdb_windowed_expand(const void* offsets, long long n,
                                       long long total, const void* src,
                                       int ncols, void* out,
                                       long long out_stride, void* owner,
-                                      void* dup, void* stream) {
-  if (ncols < 1 || ncols > kMaxCols || n < 1 || total < 1) {
+                                      void* dup, void* part,
+                                      long long part_len, void* stream) {
+  const long long items = total + n - 1;
+  const long long tiles = (items + kTile - 1) / kTile;
+  if (ncols < 1 || ncols > kMaxCols || n < 1 || total < 1 ||
+      part_len < tiles + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Cols cols = {};
@@ -118,11 +210,16 @@ extern "C" int warpdb_windowed_expand(const void* offsets, long long n,
   for (int c = 0; c < ncols; ++c) {
     cols.src[c] = static_cast<const unsigned*>(ptrs[c]);
   }
-  const long long grid = (total + kBlock - 1) / kBlock;
+  const long long* off = static_cast<const long long*>(offsets);
+  long long* p = static_cast<long long*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  windowed_expand_kernel<<<(unsigned)grid, kThreads, 0, s>>>(
-      static_cast<const long long*>(offsets), n, total, cols, ncols,
-      static_cast<unsigned*>(out), out_stride, static_cast<int*>(owner),
-      static_cast<int*>(dup));
+  partition_kernel<<<(unsigned)((tiles + kThreads) / kThreads), kThreads, 0,
+                     s>>>(off, n, total, items, tiles, p);
+  const int group = ncols < kGroup ? ncols : kGroup;
+  const size_t smem = (kTile + 1) * sizeof(long long) + kTile * sizeof(int) +
+                      group * (kTile + 1) * sizeof(unsigned);
+  windowed_expand_kernel<<<(unsigned)tiles, kThreads, smem, s>>>(
+      off, items, p, cols, ncols, static_cast<unsigned*>(out), out_stride,
+      static_cast<int*>(owner), static_cast<int*>(dup));
   return static_cast<int>(cudaGetLastError());
 }

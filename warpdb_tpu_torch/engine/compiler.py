@@ -23,8 +23,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from warpdb_tpu.errors import ExecutionError, ValidationError
-from warpdb_tpu.frontend.ast import (
+from ..errors import ExecutionError, ValidationError
+from ..frontend.ast import (
     Aggregation,
     Alias,
     BinaryOp,
@@ -45,7 +45,6 @@ from warpdb_tpu.frontend.ast import (
     WindowFunction,
     unalias,
 )
-
 from . import udf as udf_mod
 
 __all__ = [

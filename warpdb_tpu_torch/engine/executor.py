@@ -29,12 +29,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from warpdb_tpu.errors import (
+from ..errors import (
     ExecutionError,
     UnsupportedError,
     ValidationError,
 )
-from warpdb_tpu.frontend.ast import (
+from ..frontend.ast import (
     Aggregation,
     AggregationType,
     Alias,
@@ -60,8 +60,7 @@ from warpdb_tpu.frontend.ast import (
     unalias,
     walk,
 )
-from warpdb_tpu.storage.strings import literal_code
-
+from ..storage.strings import literal_code
 from ..ops.aggregate import count_distinct
 from ..ops.sort import (
     lexsort,
@@ -238,7 +237,7 @@ def bind_strings(node: Optional[Node], table) -> Optional[Node]:
     """Rewrite string literals into dictionary-code constants against
     ``table``'s vocabularies (reference ``bind_strings``).  The sorted
     vocabulary makes every comparison operator order-correct."""
-    from warpdb_tpu.storage.strfuncs import bind_string_func, is_string_func
+    from ..storage.strfuncs import bind_string_func, is_string_func
 
     if node is None:
         return None
@@ -1034,7 +1033,7 @@ def _global_agg_value(agg, param, vals, valid):
 def _count_rewrite(agg, expr, table=None):
     """SQL COUNT(expr) skips NULLs: stats-proven non-NULL columns keep the
     exact row count, else ``cnt − SUM(IsNull(expr))``."""
-    from warpdb_tpu.frontend.ast import NotNull
+    from ..frontend.ast import NotNull
 
     if agg is AggregationType.COUNT and not isinstance(
         unalias(expr), (Star, Constant)

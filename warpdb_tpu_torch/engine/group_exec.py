@@ -18,8 +18,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from warpdb_tpu.errors import ExecutionError, UnsupportedError
-from warpdb_tpu.frontend.ast import (
+from ..errors import ExecutionError, UnsupportedError
+from ..frontend.ast import (
     Aggregation,
     AggregationType,
     Alias,
@@ -35,7 +35,6 @@ from warpdb_tpu.frontend.ast import (
     unalias,
     walk,
 )
-
 from ..config import get_config
 from ..ops.aggregate import (
     group_scatter_stage,

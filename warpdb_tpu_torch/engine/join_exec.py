@@ -30,8 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from warpdb_tpu.errors import UnsupportedError, ValidationError
-from warpdb_tpu.frontend.ast import (
+from ..errors import UnsupportedError, ValidationError
+from ..frontend.ast import (
     Aggregation,
     AggregationType,
     Alias,
@@ -49,8 +49,7 @@ from warpdb_tpu.frontend.ast import (
     unalias,
     walk,
 )
-from warpdb_tpu.storage.table import ColumnStats, HostTable
-
+from ..storage.table import ColumnStats, HostTable
 from ..config import get_config
 from ..ops.expand import sorted_take, uniform_expand, windowed_expand
 from ..ops.join import join_match_counts
@@ -239,7 +238,7 @@ def _translated_right_key(left, right, left_var, right_var):
         keys = np.where(miss, sent, vals).astype(np.int32)
         return lkey, torch.as_tensor(keys, device=dev)
     if lvocab is not None:
-        from warpdb_tpu.storage.strings import vocab_mapping
+        from ..storage.strings import vocab_mapping
 
         mapping = vocab_mapping(rvocab, lvocab)
         if not len(mapping):
@@ -751,7 +750,7 @@ def _try_eager_join_aggregate(query, table, catalog):
     key_vals = np.asarray(out[key_name])
     key_dt = right.dtypes.get(key_name)
     if key_name in right.dicts:
-        from warpdb_tpu.storage.strings import decode_codes
+        from ..storage.strings import decode_codes
 
         arrays[key_name] = np.asarray(
             decode_codes(key_vals, right.dicts[key_name]), dtype=object

@@ -16,7 +16,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-from warpdb_tpu.frontend.ast import (
+from ..frontend.ast import (
     Aggregation,
     CodeMap,
     BinaryOp,

@@ -27,12 +27,12 @@ from collections import OrderedDict
 
 import numpy as np
 
-from warpdb_tpu.errors import (
+from ..errors import (
     ExecutionError,
     UnsupportedError,
     ValidationError,
 )
-from warpdb_tpu.frontend.ast import (
+from ..frontend.ast import (
     Aggregation,
     AggregationType,
     Alias,
@@ -56,10 +56,8 @@ from warpdb_tpu.frontend.ast import (
     unalias,
     walk,
 )
-from warpdb_tpu.storage.strings import decode_codes, literal_code
-from warpdb_tpu.storage.table import DataType, HostTable
-
-from ..storage.table import DeviceTable
+from ..storage.strings import decode_codes, literal_code
+from ..storage.table import DataType, DeviceTable, HostTable
 from . import udf as udf_mod
 from .join_exec import _and_chain, _and_conjuncts, _table_uid
 

@@ -23,7 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
-from warpdb_tpu.errors import ValidationError
+from ..errors import ValidationError
 
 __all__ = ["register_udf", "resolve_udf", "registry_version",
            "load_custom_module"]

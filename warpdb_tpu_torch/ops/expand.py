@@ -31,7 +31,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from warpdb_tpu.errors import ExecutionError
+from ..errors import ExecutionError
 
 __all__ = [
     "windowed_expand", "windowed_expand_plain",
@@ -43,6 +43,9 @@ _I32 = torch.int32
 _MAX_COLS = 16
 _BLOCKS_PER_SM = 8
 _THREADS = 256
+# Merged items (probe rows + outputs) per K3 tile (kTile in its source;
+# the kernel refuses a smaller partition scratch).
+_K3_TILE = 1024
 
 
 def _words(cols: Sequence[torch.Tensor], n: Optional[int] = None) -> list:
@@ -156,6 +159,9 @@ def windowed_expand(offsets: torch.Tensor, cols, total: int,
     if n == 0:
         raise ExecutionError("windowed_expand: no probe rows for a total > 0")
     off = offsets.to(torch.int64).contiguous()
+    # Each tile's split of the merge path, found by the kernel's first pass.
+    part = torch.empty(-(-(total + n - 1) // _K3_TILE) + 1,
+                       dtype=torch.int64, device=dev)
     fn = _build.load("windowed_expand").warpdb_windowed_expand
     stream = torch.cuda.current_stream(dev).cuda_stream
     for s, ptrs in _chunks(words):
@@ -165,7 +171,8 @@ def windowed_expand(offsets: torch.Tensor, cols, total: int,
             off.data_ptr(), n, total, ctypes.addressof(ptrs), len(ptrs),
             out[s].data_ptr(), total,
             own.data_ptr() if (first and own is not None) else None,
-            dup.data_ptr() if first else None, stream,
+            dup.data_ptr() if first else None, part.data_ptr(),
+            part.shape[0], stream,
         ))
         windowed_expand.launches += 1
     return own, dup, _unwords(list(out), cols)
@@ -188,16 +195,17 @@ def uniform_expand(cols, k: int, total: int) -> tuple:
             f"rows x k={k}"
         )
     dev = words[0].device
-    out = torch.empty((len(words), total), dtype=_I32, device=dev)
+    # Rows padded to a multiple of 4 words: the kernel stores 16-byte runs.
+    stride = -(-total // 4) * 4
+    out = torch.empty((len(words), stride), dtype=_I32, device=dev)[:, :total]
     if total == 0:
         return _unwords(list(out), cols)
     fn = _build.load("uniform_expand").warpdb_uniform_expand
     stream = torch.cuda.current_stream(dev).cuda_stream
-    grid = _grid(dev, total)
     for s, ptrs in _chunks(words):
         _check("uniform_expand", fn(
-            ctypes.addressof(ptrs), len(ptrs), k, total, out[s].data_ptr(),
-            total, grid, stream,
+            ctypes.addressof(ptrs), len(ptrs), words[0].shape[0], k, total,
+            out[s].data_ptr(), stride, stream,
         ))
         uniform_expand.launches += 1
     return _unwords(list(out), cols)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from warpdb_tpu.errors import ExecutionError
+from ..errors import ExecutionError
 
 __all__ = ["group_counts_sums", "group_counts_sums_plain"]
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from warpdb_tpu.errors import ExecutionError
+from ..errors import ExecutionError
 
 __all__ = ["topk_candidates", "topk_candidates_plain", "kernel_k", "MAX_K"]
 

@@ -1,10 +1,10 @@
-"""Device tables on torch tensors.
+"""Columnar data model: host tables (NumPy) and device tables (torch).
 
-The host side (``HostTable``, ``ColumnStats``, ``DataType``, the loaders
-and the dictionary encoders) is imported from ``warpdb_tpu.storage``: the
-same numpy-backed ``HostTable`` feeds both packages.  This module is the
-counterpart of ``warpdb_tpu/storage/table.py:DeviceTable`` and keeps its
-rules:
+The host half (``DataType``, ``ColumnStats``, ``HostColumn``,
+``HostTable``, ``padded_length``) is the port's own copy of
+``warpdb_tpu/storage/table.py:1-219``, unchanged: the same numpy-backed
+tables, stats and dtype rules.  ``DeviceTable`` is the counterpart of the
+reference's and keeps its rules:
 
 * every numeric column is one padded tensor (zeros past ``num_rows``);
 * string columns share ONE sorted vocabulary and ride as int32 codes;
@@ -20,24 +20,209 @@ rules:
 
 from __future__ import annotations
 
-from typing import Optional
+import enum
+from dataclasses import dataclass, field
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from warpdb_tpu.errors import ValidationError
-from warpdb_tpu.storage.strings import (
-    encode_int64_columns,
-    encode_string_columns,
-)
-from warpdb_tpu.storage.table import (
-    ColumnStats,
-    DataType,
-    HostTable,
-    padded_length,
-)
+from ..errors import ValidationError
+from .strings import encode_int64_columns, encode_string_columns
 
-__all__ = ["DeviceTable", "DataType", "HostTable", "ColumnStats"]
+__all__ = [
+    "DataType",
+    "ColumnStats",
+    "HostColumn",
+    "HostTable",
+    "DeviceTable",
+    "PAD_MULTIPLE",
+    "padded_length",
+]
+
+# One float32 VPU tile is (8, 128); padding 1-D columns to a multiple of
+# 1024 keeps every reshape/tile XLA attempts aligned.
+PAD_MULTIPLE = 1024
+
+
+class DataType(enum.Enum):
+    INT32 = "int32"
+    INT64 = "int64"
+    FLOAT32 = "float32"
+    FLOAT64 = "float64"
+    STRING = "string"
+
+    # Aliases matching the reference enum spelling (csv_loader.hpp:13).
+    Int32 = INT32
+    Int64 = INT64
+    Float32 = FLOAT32
+    Float64 = FLOAT64
+    String = STRING
+
+    @property
+    def np_dtype(self) -> Optional[np.dtype]:
+        return {
+            DataType.INT32: np.dtype(np.int32),
+            DataType.INT64: np.dtype(np.int64),
+            DataType.FLOAT32: np.dtype(np.float32),
+            DataType.FLOAT64: np.dtype(np.float64),
+            DataType.STRING: None,
+        }[self]
+
+    @property
+    def is_numeric(self) -> bool:
+        return self is not DataType.STRING
+
+    @classmethod
+    def from_np(cls, dtype: np.dtype) -> "DataType":
+        mapping = {
+            np.dtype(np.int32): cls.INT32,
+            np.dtype(np.int64): cls.INT64,
+            np.dtype(np.float32): cls.FLOAT32,
+            np.dtype(np.float64): cls.FLOAT64,
+        }
+        if dtype in mapping:
+            return mapping[dtype]
+        if dtype.kind in ("U", "S", "O"):
+            return cls.STRING
+        if dtype.kind == "f":
+            return cls.FLOAT32
+        if dtype.kind in ("i", "u", "b"):
+            return cls.INT32
+        raise ValidationError(f"Unsupported dtype: {dtype}")
+
+
+@dataclass(frozen=True)
+class ColumnStats:
+    """min/max/null-count — the reference's declared-but-never-written
+    ColumnStats (csv_loader.hpp:22-37), actually computed here."""
+
+    min: Optional[float] = None
+    max: Optional[float] = None
+    null_count: int = 0
+
+    @classmethod
+    def compute(cls, values: np.ndarray) -> "ColumnStats":
+        if values.size == 0:
+            return cls()
+        if values.dtype.kind == "f":
+            nulls = int(np.count_nonzero(np.isnan(values)))
+            if nulls == values.size:
+                return cls(null_count=nulls)
+            return cls(
+                min=float(np.nanmin(values)),
+                max=float(np.nanmax(values)),
+                null_count=nulls,
+            )
+        if values.dtype.kind in ("i", "u"):
+            return cls(min=float(values.min()), max=float(values.max()))
+        return cls()
+
+
+@dataclass
+class HostColumn:
+    name: str
+    dtype: DataType
+    data: np.ndarray  # object array for strings
+    stats: ColumnStats = field(default_factory=ColumnStats)
+
+    @classmethod
+    def build(cls, name: str, dtype: DataType, data) -> "HostColumn":
+        if dtype is DataType.STRING:
+            arr = np.asarray(data, dtype=object)
+        else:
+            arr = np.asarray(data, dtype=dtype.np_dtype)
+        stats = ColumnStats.compute(arr) if dtype.is_numeric else ColumnStats()
+        return cls(name, dtype, arr, stats)
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+
+class HostTable:
+    """Host-resident columnar table."""
+
+    def __init__(self, columns: Sequence[HostColumn] = ()):
+        self.columns: list[HostColumn] = list(columns)
+        lengths = {len(c) for c in self.columns}
+        if len(lengths) > 1:
+            raise ValidationError(f"Ragged columns: lengths {sorted(lengths)}")
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.columns[0]) if self.columns else 0
+
+    @property
+    def column_names(self) -> list[str]:
+        return [c.name for c in self.columns]
+
+    def get_column(self, name: str) -> Optional[HostColumn]:
+        for c in self.columns:
+            if c.name == name:
+                return c
+        return None
+
+    def require_column(self, name: str) -> HostColumn:
+        col = self.get_column(name)
+        if col is None:
+            raise ValidationError(f"Unknown column: {name}")
+        return col
+
+    def slice(self, start: int, end: int) -> "HostTable":
+        return HostTable(
+            [
+                HostColumn(c.name, c.dtype, c.data[start:end], c.stats)
+                for c in self.columns
+            ]
+        )
+
+    @staticmethod
+    def concat(tables: Iterable["HostTable"]) -> "HostTable":
+        tables = [t for t in tables if t.columns]
+        if not tables:
+            return HostTable()
+        first = tables[0]
+        cols = []
+        for i, col in enumerate(first.columns):
+            data = np.concatenate([t.columns[i].data for t in tables])
+            cols.append(HostColumn.build(col.name, col.dtype, data))
+        return HostTable(cols)
+
+    @classmethod
+    def from_dict(cls, data: dict, dtypes: Optional[dict] = None) -> "HostTable":
+        cols = []
+        for name, values in data.items():
+            arr = np.asarray(values)
+            dtype = (dtypes or {}).get(name)
+            if dtype is None:
+                dtype = DataType.from_np(arr.dtype)
+                # NumPy infers float64 for plain Python float lists, but
+                # the caller's intent there is "floats", not a 64-bit
+                # precision demand — infer FLOAT32 so casual data skips
+                # the strict FLOAT64 round-trip policy (DeviceTable
+                # .from_host).  Explicit np.float64 arrays and declared
+                # FLOAT64 dtypes keep their precision contract.
+                if dtype is DataType.FLOAT64 and not isinstance(
+                    values, np.ndarray
+                ):
+                    dtype = DataType.FLOAT32
+            cols.append(HostColumn.build(name, dtype, values))
+        return cls(cols)
+
+    def to_dict(self) -> dict:
+        return {c.name: c.data for c in self.columns}
+
+    def __repr__(self) -> str:
+        cols = ", ".join(f"{c.name}:{c.dtype.value}" for c in self.columns)
+        return f"HostTable({self.num_rows} rows; {cols})"
+
+
+def padded_length(n: int, multiple: int = PAD_MULTIPLE) -> int:
+    """Round ``n`` up to a lane-aligned static buffer length (≥ multiple)."""
+    if n <= 0:
+        return multiple
+    return ((n + multiple - 1) // multiple) * multiple
+
 
 
 class DeviceTable:
@@ -75,14 +260,18 @@ class DeviceTable:
         return self._row_views
 
     @classmethod
-    def from_host(cls, host: HostTable, device="cpu",
+    def from_host(cls, host: HostTable, device=None,
                   pad_multiple: Optional[int] = None,
                   keep_host: bool = True) -> "DeviceTable":
+        """Upload ``host`` to ``device``: None means the card, and raises
+        where there is none; pass ``"cpu"`` for the plain versions."""
+        from ..api import resolve_device
+
         if pad_multiple is None:
             from ..config import get_config
 
             pad_multiple = get_config().pad_multiple
-        device = torch.device(device)
+        device = resolve_device(device)
         n = host.num_rows
         padded = padded_length(n, pad_multiple)
         columns, dtypes, stats, dicts = {}, {}, {}, {}
