@@ -9,12 +9,20 @@ Phases, each raising on failure:
 2. build: all five CUDA kernels (top-k K1, group histogram K2, the join's
    expansions K3 and K4 and its sorted gather K5) compile from
    ``warpdb_tpu_torch/csrc`` with nvcc for sm_90a, in parallel;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   K3-K5 bit for bit at the join's full sizes (K3 and K4 also at their
-   edge shapes), then each timed at the main path's shapes beside its
-   plain version, the one PyTorch call computing the same function where
-   there is one, and its bound (bytes over the card's memory rate);
-   ``--kernels`` stops here, after printing each kernel's ptxas usage;
+3. kernels: each kernel against its plain PyTorch version on the card:
+   K1 at k = 16, 32, 64, 128 over random, ascending and duplicate values
+   at 2^25 rows and at its edge shapes (n = 1000, under one wave, ragged,
+   views 1 and 3 floats in); K2 at 4097..65536 slots with 0, 1, 4 and 5
+   value columns, one hot slot, a Zipf mix and ±inf/NaN values (float64
+   holds the sums; the plain version too where its own f32 chain is
+   within the tolerance); K3-K5 bit for bit at the join's full sizes (K3
+   and K4 also at their edge shapes).  Then each timed at the main path's
+   shapes beside its plain version, the one PyTorch call computing the
+   same function where there is one, and its bound (bytes over the card's
+   memory rate), K1 and K2 also by ``torch.profiler`` device time and K1
+   also without the finish; and a table of K1's and K2's design variants.
+   ``--kernels`` stops here, after printing each kernel instance's ptxas
+   usage;
 4. slice: ``WarpDB(..., device="cuda")`` over bench.py's table (2^25
    rows, seed 12345) runs bench.py's query set and four more queries,
    each checked against NumPy on the same arrays; the K1 and K2 launch
@@ -45,6 +53,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -295,72 +304,169 @@ def timing(kernel, plain, library, nbytes: int, shape: str) -> dict:
             "bound_ms": bound_ms(nbytes), "shape": shape}
 
 
+def device_ms(fn, keys, reps: int = 20):
+    """Mean device time per call of the kernels whose names hold one of
+    ``keys``, from ``torch.profiler`` (None when the tracer returned no
+    such kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and any(k in e.name for k in keys)]
+    if not dev:
+        return None
+    return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / reps
+
+
+K1_NAMES = ("topk_kernel",)
+K2_NAMES = ("group_hist_",)
+
+
+def _check_topk(topk, x, k: int, what: str, err: dict) -> None:
+    cand = topk.topk_candidates(x, k)
+    want = topk.topk_candidates_plain(x, k).reshape(-1)
+    got = torch.topk(cand.reshape(-1), k).values
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not torch.equal(cand[0, :k], want):
+        raise AssertionError(f"K1 {what} k={k}: top-k differs from plain")
+    fin = torch.isfinite(want)
+    if bool(fin.any()):
+        err["topk"] = max(err["topk"],
+                          float((got[fin] - want[fin]).abs().max()))
+
+
+def _topk_input(g, case: str, n: int) -> torch.Tensor:
+    if case == "random":
+        x = g.uniform(-100, 100, n).astype(np.float32)
+    elif case == "ascending":
+        x = np.sort(g.uniform(-100, 100, n).astype(np.float32))
+    else:
+        x = g.choice(np.float32([1.0, 2.0, 3.0, 99.5]), n)
+    return torch.from_numpy(x).cuda()
+
+
+def _group_ids(g, case: str, slots: int, n: int) -> np.ndarray:
+    if case == "uniform":
+        gid = g.integers(0, slots, n)
+    elif case == "one_slot":
+        gid = np.full(n, slots // 3)
+    else:  # a Zipf-like mix over shuffled slot labels
+        gid = g.permutation(slots)[(g.zipf(1.3, n) - 1) % slots]
+    gid = gid.astype(np.int32)
+    gid[::17] = slots          # invalid rows, as callers pass them
+    gid[5::29] = -3            # stray negative ids
+    return gid
+
+
+def _check_group(group, gid, gd, vals, vd, slots, what, err, ref,
+                 hold_plain: bool = True) -> str:
+    """K2 on the card against its plain version and float64 sums
+    (``ref[c]`` memoises column c's float64 bincount).  Where one slot
+    takes millions of rows the plain version's single f32 chain drifts
+    from float64 by more than SUM_RTOL; there (``hold_plain`` False) the
+    kernel is held to float64 alone and both drifts are reported."""
+    c, s = group.group_counts_sums(gd, vd, slots)
+    cp, sp = group.group_counts_sums_plain(gd, vd, slots)
+    torch.cuda.synchronize()
+    if not torch.equal(c, cp):
+        raise AssertionError(f"K2 {what}: counts differ")
+    ok = (gid >= 0) & (gid < slots)
+    drift = ""
+    for i, (a, b) in enumerate(zip(s, sp)):
+        if hold_plain:
+            torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=1e-2)
+        if i not in ref:
+            ref[i] = np.bincount(gid[ok], weights=vals[i][ok].astype(
+                np.float64), minlength=slots)
+        got = a.cpu().numpy()
+        np.testing.assert_allclose(got, ref[i], rtol=SUM_RTOL, atol=1e-2)
+        err["group_hist"] = max(err["group_hist"], float((a - b).abs().max()))
+        big = np.abs(ref[i]) > 1.0
+        rel = lambda x: float(np.max(np.abs(x[big] - ref[i][big])
+                                     / np.abs(ref[i][big])))
+        drift = (f"; relative error against float64: kernel "
+                 f"{rel(got)!r}, plain {rel(b.cpu().numpy())!r}")
+    return drift
+
+
 def phase_kernels(topk, group) -> tuple:
-    """K1 and K2 against their plain versions on the card, and each timed
-    at the slice's shapes."""
+    """K1 and K2 against their plain versions on the card (the slice's
+    shapes and the edge shapes), each timed at the slice's shapes, and a
+    table of their design variants."""
     from warpdb_tpu_torch.ops.sort import top_k_values
 
     g = np.random.default_rng(7)
     err = {"topk": 0.0, "group_hist": 0.0}
+    ks = (16, 32, 64, 128)
     for n in (ROWS, ROWS - 37):
         for case in ("random", "ascending", "duplicates"):
-            if case == "random":
-                x = g.uniform(-100, 100, n).astype(np.float32)
-            elif case == "ascending":
-                x = np.sort(g.uniform(-100, 100, n).astype(np.float32))
-            else:
-                x = g.choice(np.float32([1.0, 2.0, 3.0, 99.5]), n)
-            xd = torch.from_numpy(x).cuda()
-            for k in (16, 128):
-                got = torch.topk(topk.topk_candidates(xd, k).reshape(-1), k).values
-                want = topk.topk_candidates_plain(xd, k).reshape(-1)
-                torch.cuda.synchronize()
-                err["topk"] = max(err["topk"], float((got - want).abs().max()))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"K1 {case} n={n} k={k}: top-k differs")
-            log(f"K1 n={n} {case}: top-k multiset equal to plain (k=16,128)")
-    for slots in (6000, 40000, KEY_SLOTS):
-        gid = g.integers(0, slots, ROWS).astype(np.int32)
-        gid[::17] = slots          # invalid rows, as callers pass them
-        gid[5::29] = -3            # stray negative ids
+            xd = _topk_input(g, case, n)
+            for k in ks:
+                _check_topk(topk, xd, k, f"{case} n={n}", err)
+            log(f"K1 n={n} {case}: top-k multiset equal to plain, sorted "
+                "row (k=16,32,64,128)")
+    # Edge shapes: n = 1000, fewer values than one wave of threads, a
+    # ragged 2^22 - 37, and views 1-3 floats in (not 16-byte aligned).
+    wave = 132 * topk.THREADS * 4
+    for case in ("random", "ascending", "duplicates"):
+        base = _topk_input(g, case, (1 << 22) - 34)
+        for what, xd in (("n=1000", base[:1000]),
+                         (f"n={wave // 2} (under one wave)", base[:wave // 2]),
+                         (f"n={(1 << 22) - 37}", base[:(1 << 22) - 37]),
+                         ("offset 1 float", base[1:]),
+                         ("offset 3 floats", base[3:])):
+            for k in ks:
+                _check_topk(topk, xd, k, f"{case} {what}", err)
+        log(f"K1 {case} at n=1000, {wave // 2}, {(1 << 22) - 37} and "
+            "offsets 1, 3: equal to plain (k=16,32,64,128)")
+    # K2: 4097..65536 slots, nv 0/1/4/5 (5: two launches), the slice's
+    # row count.
+    pool = [g.uniform(0, 100, ROWS).astype(np.float32) for _ in range(5)]
+    pool_d = [torch.from_numpy(v).cuda() for v in pool]
+    for slots in (4097, 6000, 16385, 40000, KEY_SLOTS):
+        gid = _group_ids(g, "uniform", slots, ROWS)
         gd = torch.from_numpy(gid).cuda()
-        for nv in (0, 1, 2):
-            vals = [g.uniform(0, 100, ROWS).astype(np.float32) for _ in range(nv)]
-            vd = [torch.from_numpy(v).cuda() for v in vals]
-            c, s = group.group_counts_sums(gd, vd, slots)
-            cp, sp = group.group_counts_sums_plain(gd, vd, slots)
-            torch.cuda.synchronize()
-            if not torch.equal(c, cp):
-                raise AssertionError(f"K2 slots={slots} nv={nv}: counts differ")
-            ok = (gid >= 0) & (gid < slots)
-            for a, b, v in zip(s, sp, vals):
-                torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=1e-2)
-                ref = np.bincount(gid[ok], weights=v[ok].astype(np.float64),
-                                  minlength=slots)
-                np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=SUM_RTOL,
-                                           atol=1e-2)
-                err["group_hist"] = max(
-                    err["group_hist"], float((a - b).abs().max())
-                )
-            log(f"K2 slots={slots} nv={nv}: counts exact, sums within "
-                f"rtol {SUM_RTOL} of plain and float64")
-    # ±inf values go through K2 (the TPU path gated them off): the inf
-    # reaches only its own slot, as the reference's scatter engine gives.
-    gid = torch.arange(8, dtype=torch.int32, device="cuda").repeat(128)
+        ref: dict = {}
+        for nv in (0, 1, 4, 5):
+            _check_group(group, gid, gd, pool[:nv], pool_d[:nv], slots,
+                         f"slots={slots} nv={nv}", err, ref)
+        log(f"K2 slots={slots} nv=0,1,4,5: counts exact, sums within rtol "
+            f"{SUM_RTOL} of plain and float64")
+    for slots in (4097, KEY_SLOTS):
+        for case in ("one_slot", "zipf"):
+            gid = _group_ids(g, case, slots, ROWS)
+            drift = _check_group(group, gid, torch.from_numpy(gid).cuda(),
+                                 pool[:1], pool_d[:1], slots,
+                                 f"{case} slots={slots}", err, {},
+                                 hold_plain=False)
+            log(f"K2 {case} slots={slots} nv=1: counts exact, sums within "
+                f"rtol {SUM_RTOL} of float64{drift}")
+    # ±inf and NaN values go through K2 (the TPU path gated them off): a
+    # non-finite value reaches only its own slot, as the reference's
+    # scatter engine gives; slot 5 takes one warp's rows (the hot path).
+    gid = torch.arange(8, dtype=torch.int32, device="cuda").repeat(2048)
+    gid[256:384] = 5
     v = torch.ones(gid.shape[0], device="cuda")
-    v[3] = float("inf")
-    v[12] = float("-inf")
-    c, (s,) = group.group_counts_sums(gid, [v], 8)
-    want = torch.full((8,), 128.0, device="cuda")
-    want[3], want[4] = float("inf"), float("-inf")
-    if not torch.equal(s, want):
-        raise AssertionError(f"K2 ±inf: {s.tolist()}")
-    log("K2 ±inf values: only their own slots are non-finite")
+    v[3], v[12], v[300] = float("inf"), float("-inf"), float("nan")
+    c, (s,) = group.group_counts_sums(gid, [v], 4097)
+    want = group.group_counts_sums_plain(gid, [v], 4097)[1][0]
+    if not (torch.equal(s.isnan(), want.isnan())
+            and torch.equal(s[~want.isnan()], want[~want.isnan()])):
+        raise AssertionError(f"K2 ±inf/NaN: {s[:8].tolist()}")
+    log("K2 ±inf/NaN values: only their own slots are non-finite")
+
     # The slice's shapes: ORDER BY price DESC LIMIT 5 over 2^25 uniform
     # prices (k = 16 after rounding up) and GROUP BY k (2^16 slots, one
-    # value column).  Both K1 sides give the final top-k: the kernel plus
-    # the torch.topk finish over its candidates, against torch.topk.
-    u = torch.from_numpy(g.uniform(0, 100, ROWS).astype(np.float32)).cuda()
+    # value column).  "With the finish" is top_k_values (the kernel, then
+    # the first k of its sorted row), against torch.topk.
+    u = pool_d[0]
     ms = {"topk": timing(lambda: top_k_values(u, None, 16, False),
                          lambda: topk.topk_candidates_plain(u, 16),
                          lambda: torch.topk(u, 16), ROWS * 4 + 16 * 4,
@@ -370,7 +476,84 @@ def phase_kernels(topk, group) -> tuple:
         lambda: group.group_counts_sums(gid, [u], KEY_SLOTS),
         lambda: group.group_counts_sums_plain(gid, [u], KEY_SLOTS),
         None, ROWS * 8 + KEY_SLOTS * 8, f"n={ROWS} slots={KEY_SLOTS} nv=1")
-    return err, ms
+    ms["topk"]["alone_ms"] = cuda_ms(lambda: topk.topk_candidates(u, 16))
+    ms["topk"]["profiler_ms"] = device_ms(
+        lambda: top_k_values(u, None, 16, False), K1_NAMES)
+    ms["group_hist"]["profiler_ms"] = device_ms(
+        lambda: group.group_counts_sums(gid, [u], KEY_SLOTS), K2_NAMES)
+    variants = _variants(topk, group, top_k_values, u, pool_d, g)
+    return err, ms, variants
+
+
+def _variants(topk, group, top_k_values, u, pool_d, g) -> list:
+    """K1 and K2 at the variants of their designs (2^25 rows): CUDA-event
+    and profiler ms per call and the bound of the same work."""
+    asc = torch.sort(u).values
+    dup = torch.from_numpy(
+        g.choice(np.float32([1.0, 2.0, 3.0, 99.5]), ROWS)).cuda()
+    rows = []
+    for k in (16, 32, 64, 128):
+        rows.append((f"K1 random k={k}, kernel alone",
+                     lambda k=k: topk.topk_candidates(u, k), K1_NAMES,
+                     ROWS * 4 + k * 4))
+    rows.append(("K1 random k=128, with the finish",
+                 lambda: top_k_values(u, None, 128, False), K1_NAMES,
+                 ROWS * 4 + 128 * 4))
+    for k in (16, 128):
+        rows.append((f"K1 ascending k={k}",
+                     lambda k=k: topk.topk_candidates(asc, k), K1_NAMES,
+                     ROWS * 4 + k * 4))
+    rows.append(("K1 duplicates k=16", lambda: topk.topk_candidates(dup, 16),
+                 K1_NAMES, ROWS * 4 + 64))
+    other = 12 - topk.UNROLL  # the other load depth, 4 or 8
+    for k in (16, 128):
+        rows.append((f"K1 random k={k}, kernel alone, unroll {other}",
+                     lambda k=k: topk.topk_candidates(u, k, unroll=other),
+                     K1_NAMES, ROWS * 4 + k * 4))
+    rows.append((f"K1 duplicates k=16, unroll {other}",
+                 lambda: topk.topk_candidates(dup, 16, unroll=other),
+                 K1_NAMES, ROWS * 4 + 64))
+    for slots in (4097, KEY_SLOTS):
+        ids = {case: torch.from_numpy(_group_ids(g, case, slots, ROWS)).cuda()
+               for case in ("uniform", "one_slot", "zipf")}
+        table = slots * 8
+        # Each design at each cluster size, both flushes; the multicast
+        # ring at other depths and block sizes.
+        forced = [dict(design=d, slices=c, atomic_flush=f)
+                  for d in group.DESIGNS for c in (1, 2, 3, 4, 6, 8, 16)
+                  for f in (False, True)
+                  if d == "local" or c in group.CLUSTER_SIZES]
+        forced += [dict(design="multicast", stages=st, threads=th)
+                   for st in (2, 4, 6) for th in (512, 1024)]
+        forced += [dict(slices=c, threads=th) for c in (3, 4, 8)
+                   for th in (256, 512)]
+        for kw in forced:
+            plan_kw = {k: v for k, v in kw.items() if k != "atomic_flush"}
+            try:
+                plan = group.cluster_plan(slots, 1, 1, **plan_kw)
+            except Exception:
+                continue  # the slices do not fit this cluster
+            flush = "atomic" if kw.get("atomic_flush") else "partials"
+            rows.append((
+                f"K2 slots={slots} nv=1 {plan.design} slices={plan.slices} "
+                f"stages={plan.stages} T={plan.T} threads={plan.threads} "
+                f"{flush} flush",
+                lambda kw=kw, d=ids["uniform"], ns=slots:
+                    group.group_counts_sums(d, [u], ns, **kw),
+                K2_NAMES, ROWS * 8 + table))
+        for case in ("uniform", "one_slot", "zipf"):
+            rows.append((f"K2 slots={slots} nv=1 {case} ids, default plan",
+                         lambda d=ids[case], ns=slots: group.group_counts_sums(
+                             d, [u], ns),
+                         K2_NAMES, ROWS * 8 + table))
+        rows.append((f"K2 slots={slots} nv=4 uniform ids, default plan",
+                     lambda d=ids["uniform"], ns=slots: group.group_counts_sums(
+                         d, pool_d[:4], ns),
+                     K2_NAMES, ROWS * 20 + slots * 20))
+    out = []
+    for what, fn, keys, nbytes in rows:
+        out.append((what, cuda_ms(fn), device_ms(fn, keys), bound_ms(nbytes)))
+    return out
 
 
 def _special_words(g, n: int) -> list:
@@ -738,9 +921,16 @@ def phase_ptxas(_build) -> None:
             capture_output=True, text=True, check=True,
         )
         out.unlink()
+        entry = ""
         for line in proc.stderr.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {kname}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # The kernel and its template arguments, unmangled enough
+                # to tell the instances apart.
+                mangled = line.split("'")[1]
+                entry = re.sub(r"^_ZN\d+_GLOBAL__N__.*?_cu_[0-9a-f]{8}\d+",
+                               "", mangled)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {kname} {entry}: {line.strip()}")
 
 
 def main(argv: list) -> int:
@@ -770,7 +960,7 @@ def main(argv: list) -> int:
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])}) "
         + ", ".join(f"{k}={v}" for k, v in libs.items()))
 
-    err, kms = phase_kernels(topk, group)
+    err, kms, variants = phase_kernels(topk, group)
     xerr, xms = phase_expand_kernels(expand)
     err.update(xerr)
     kms.update(xms)
@@ -779,9 +969,20 @@ def main(argv: list) -> int:
         f"bound at {HBM_TB_S} TB/s):")
     for kname, t in kms.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']!r} ms"
+        extra = ""
+        if "alone_ms" in t:
+            extra += f", kernel alone {t['alone_ms']!r} ms"
+        if "profiler_ms" in t:
+            extra += f", profiler device time {t['profiler_ms']!r} ms"
         log(f"  {kname} {t['shape']}: kernel {t['ms']!r} ms, plain "
             f"{t['plain_ms']!r} ms, library {lib}, bound {t['bound_ms']!r} "
-            f"ms = {100 * t['bound_ms'] / t['ms']!r}% [{name}]")
+            f"ms = {100 * t['bound_ms'] / t['ms']!r}%{extra} [{name}]")
+    log(f"K1/K2 design variants on {name} (n={ROWS}; CUDA events, mean of "
+        "20 calls; profiler device time of the kernels a call; bound):")
+    for what, ev, dev, bd in variants:
+        share = "" if dev is None else f" = {100 * bd / dev!r}% of the device time"
+        log(f"  {what}: events {ev!r} ms, device {dev!r} ms, bound {bd!r} ms"
+            f"{share} [{name}]")
     if kernels_only:
         phase_ptxas(_build)
         return 0

@@ -35,39 +35,212 @@ def _topk_input(case: str, n: int) -> np.ndarray:
     return rng.choice(np.float32([1.0, 2.0, 3.0, 99.5]), n)
 
 
-@pytest.mark.parametrize("k", [16, 64, 128])
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
 @pytest.mark.parametrize("case", ["random", "ascending", "duplicates"])
-@pytest.mark.parametrize("n", [1 << 22, (1 << 22) - 37, 1000])
+# 100_000 values are fewer than one wave of the kernel's threads.
+@pytest.mark.parametrize("n", [1 << 22, (1 << 22) - 37, 1000, 100_000])
 def test_topk_kernel_matches_plain(cuda, case, k, n):
     xd = torch.from_numpy(_topk_input(case, n)).to(cuda)
     before = topk_kernel.topk_candidates.launches
-    got = torch.topk(topk_kernel.topk_candidates(xd, k).reshape(-1), k).values
+    cand = topk_kernel.topk_candidates(xd, k)
+    got = torch.topk(cand.reshape(-1), k).values
     want = topk_kernel.topk_candidates_plain(xd, k).reshape(-1)
     torch.cuda.synchronize()
     assert topk_kernel.topk_candidates.launches == before + 1
+    assert cand.shape == (1, k)
     assert torch.equal(got, want)
+    assert torch.equal(cand[0], want)  # the row is sorted
 
 
-@pytest.mark.parametrize("nv", [0, 1, 5])
-@pytest.mark.parametrize("num_slots", [6000, 65536])
+@pytest.mark.parametrize("unroll", [4, 8])
+@pytest.mark.parametrize("k", [16, 128])
+@pytest.mark.parametrize("case", ["random", "ascending", "duplicates"])
+@pytest.mark.parametrize("n", [(1 << 22) + 5, 100_000])
+def test_topk_kernel_load_depths(cuda, n, case, k, unroll):
+    xd = torch.from_numpy(_topk_input(case, n)).to(cuda)
+    got = topk_kernel.topk_candidates(xd, k, unroll=unroll)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, topk_kernel.topk_candidates_plain(xd, k)[0])
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", ["random", "ascending", "duplicates"])
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_topk_kernel_unaligned_input(cuda, case, k, shift):
+    # A view `shift` floats into the buffer: not 16-byte aligned.
+    base = torch.from_numpy(_topk_input(case, (1 << 22) - 37)).to(cuda)
+    xd = base[shift:]
+    got = topk_kernel.topk_candidates(xd, k)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, topk_kernel.topk_candidates_plain(xd, k)[0])
+
+
+@pytest.mark.parametrize("k", [2, 5, 17, 33, 100, 128])
+@pytest.mark.parametrize("n", [3, 40, 5000])
+def test_top_k_values_on_card(cuda, k, n):
+    from warpdb_tpu_torch.ops.sort import top_k_values
+
+    x = torch.from_numpy(_topk_input("random", n)).to(cuda)
+    mask = torch.arange(n, device=cuda) % 3 != 0
+    for asc in (False, True):
+        got = top_k_values(x, mask, k, asc)
+        want = top_k_values(x.cpu(), mask.cpu(), k, asc)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_topk_kernel_on_two_streams(cuda):
+    # Each stream has its own ticket; back-to-back launches reuse it.
+    xs = [torch.from_numpy(_topk_input(c, 1 << 20)).to(cuda)
+          for c in ("random", "ascending")]
+    side = torch.cuda.Stream()
+    outs = []
+    for i in range(4):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.current_stream()):
+            outs.append(topk_kernel.topk_candidates(xs[i % 2], 64))
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        assert torch.equal(o, topk_kernel.topk_candidates_plain(xs[i % 2], 64))
+
+
+def _group_ids(case: str, num_slots: int, n: int, rng) -> np.ndarray:
+    if case == "uniform":
+        gid = rng.integers(0, num_slots, n)
+    elif case == "one_slot":
+        gid = np.full(n, num_slots // 3)
+    else:  # Zipf-like over shuffled slot labels
+        perm = rng.permutation(num_slots)
+        gid = perm[(rng.zipf(1.3, n) - 1) % num_slots]
+    gid = gid.astype(np.int32)
+    gid[::17] = num_slots
+    gid[5::29] = -3
+    return gid
+
+
+def _check_group(gid, vals, num_slots, **variant):
+    gd = torch.from_numpy(gid).cuda()
+    vd = [torch.from_numpy(v).cuda() for v in vals]
+    before = group_kernel.group_counts_sums.launches
+    c, s = group_kernel.group_counts_sums(gd, vd, num_slots, **variant)
+    cp, sp = group_kernel.group_counts_sums_plain(gd, vd, num_slots)
+    torch.cuda.synchronize()
+    assert group_kernel.group_counts_sums.launches == before + max(
+        1, -(-len(vals) // 4))
+    assert torch.equal(c, cp)
+    ok = (gid >= 0) & (gid < num_slots)
+    for a, b, v in zip(s, sp, vals):
+        # Sums add in a run-dependent order: rtol 1e-4 of the plain
+        # version and of float64.
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+        ref = np.bincount(gid[ok], weights=v[ok].astype(np.float64),
+                          minlength=num_slots)
+        np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=1e-4,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("nv", [0, 1, 4, 5])
+@pytest.mark.parametrize("num_slots", [4097, 6000, 16385, 40000, 65536])
 def test_group_kernel_matches_plain(cuda, num_slots, nv):
     rng = np.random.default_rng(33)
     n = 1 << 20
-    gid = rng.integers(0, num_slots, n).astype(np.int32)
-    gid[::17] = num_slots
-    gid[5::29] = -3
-    gd = torch.from_numpy(gid).to(cuda)
-    vd = [torch.from_numpy(rng.uniform(0, 100, n).astype(np.float32)).to(cuda)
-          for _ in range(nv)]
-    before = group_kernel.group_counts_sums.launches
-    c, s = group_kernel.group_counts_sums(gd, vd, num_slots)
-    cp, sp = group_kernel.group_counts_sums_plain(gd, vd, num_slots)
-    torch.cuda.synchronize()
-    assert group_kernel.group_counts_sums.launches > before
+    gid = _group_ids("uniform", num_slots, n, rng)
+    vals = [rng.uniform(0, 100, n).astype(np.float32) for _ in range(nv)]
+    _check_group(gid, vals, num_slots)
+
+
+@pytest.mark.parametrize("nv", [0, 1, 4])
+@pytest.mark.parametrize("case", ["one_slot", "zipf"])
+@pytest.mark.parametrize("num_slots", [4097, 65536])
+def test_group_kernel_skewed_ids(cuda, num_slots, case, nv):
+    # 2^20 rows: the plain version's single f32 chain a slot stays within
+    # rtol 1e-4 of float64 there (at 2^22 rows on one slot it drifts 1e-3).
+    rng = np.random.default_rng(34)
+    n = (1 << 20) + 3
+    gid = _group_ids(case, num_slots, n, rng)
+    vals = [rng.uniform(0, 100, n).astype(np.float32) for _ in range(nv)]
+    _check_group(gid, vals, num_slots)
+
+
+@pytest.mark.parametrize("atomic_flush", [False, True])
+@pytest.mark.parametrize("design", group_kernel.DESIGNS)
+@pytest.mark.parametrize("slices", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("num_slots", [4097, 65536])
+def test_group_kernel_design_variants(cuda, num_slots, slices, design,
+                                      atomic_flush):
+    from warpdb_tpu_torch.errors import ExecutionError
+
+    rng = np.random.default_rng(35)
+    n = (1 << 20) + 7
+    gid = _group_ids("uniform", num_slots, n, rng)
+    vals = [rng.uniform(0, 100, n).astype(np.float32) for _ in range(2)]
+    try:
+        group_kernel.cluster_plan(num_slots, 1, 2, slices, design)
+    except ExecutionError as e:
+        with pytest.raises(ExecutionError, match=str(e)[:30]):
+            group_kernel.group_counts_sums(
+                torch.from_numpy(gid).cuda(),
+                [torch.from_numpy(v).cuda() for v in vals], num_slots,
+                slices=slices, design=design)
+        return
+    _check_group(gid, vals, num_slots, slices=slices, design=design,
+                 atomic_flush=atomic_flush)
+
+
+@pytest.mark.parametrize("stages,threads", [(2, 1024), (4, 512), (8, 256)])
+@pytest.mark.parametrize("num_slots", [16385, 65536])
+def test_group_kernel_multicast_rings(cuda, num_slots, stages, threads):
+    rng = np.random.default_rng(37)
+    n = (1 << 20) + 9
+    gid = _group_ids("zipf", num_slots, n, rng)
+    vals = [rng.uniform(0, 100, n).astype(np.float32)]
+    _check_group(gid, vals, num_slots, design="multicast", stages=stages,
+                 threads=threads)
+
+
+@pytest.mark.parametrize("shifts", [(1, 1), (3, 3), (0, 1), (2, 0)])
+def test_group_kernel_unaligned_columns(cuda, shifts):
+    # Ids and values at the same offset from 16 bytes take the 16-byte
+    # units after a scalar head; at different offsets every row is scalar.
+    rng = np.random.default_rng(36)
+    n = (1 << 20) + 5
+    gid = _group_ids("uniform", 40000, n + 3, rng)
+    v = rng.uniform(0, 100, n + 3).astype(np.float32)
+    gs, vs = shifts
+    _check_group(gid[gs:gs + n], [v[vs:vs + n]], 40000)
+    gd = torch.from_numpy(gid).cuda()[gs:gs + n]
+    vd = torch.from_numpy(v).cuda()[vs:vs + n]
+    c, (s,) = group_kernel.group_counts_sums(gd, [vd], 40000)
+    cp, (sp,) = group_kernel.group_counts_sums_plain(gd, [vd], 40000)
     assert torch.equal(c, cp)
-    for a, b in zip(s, sp):
-        # Atomic f32 adds in a run-dependent order.
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(s, sp, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("num_slots", [4097, 65536])
+def test_group_kernel_non_finite_values(cuda, num_slots):
+    # ±inf and NaN reach only their own slot, also in a hot warp.
+    n = 1 << 16
+    gid = torch.arange(n, dtype=torch.int32, device=cuda) % 64
+    gid[1024:1152] = 7  # one warp's 32 units of 4 rows on one slot
+    v = torch.ones(n, device=cuda)
+    v[3], v[12], v[1030], v[200] = (float("inf"), float("-inf"),
+                                    float("nan"), float("inf"))
+    c, (s,) = group_kernel.group_counts_sums(gid, [v], num_slots)
+    cp, (sp,) = group_kernel.group_counts_sums_plain(gid, [v], num_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(c, cp)
+    assert torch.equal(torch.isnan(s), torch.isnan(sp))
+    assert torch.equal(torch.isinf(s), torch.isinf(sp))
+    fin = torch.isfinite(sp)
+    torch.testing.assert_close(s[fin], sp[fin])
+    assert int(torch.isfinite(s).logical_not().sum()) == 4
+
+
+def test_group_kernel_refuses_over_its_limit(cuda):
+    from warpdb_tpu_torch.errors import ExecutionError
+
+    gid = torch.zeros(64, dtype=torch.int32, device=cuda)
+    for bad in (0, group_kernel.MAX_SLOTS + 1):
+        with pytest.raises(ExecutionError, match="slots"):
+            group_kernel.group_counts_sums(gid, [], bad)
 
 
 def _host() -> HostTable:

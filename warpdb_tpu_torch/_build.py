@@ -33,26 +33,29 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _LL = ctypes.c_longlong
 
-# kernel name -> (C entry point, argtypes).  Every pointer and the stream
+# kernel name -> {C entry point: argtypes}.  Every pointer and the stream
 # are c_void_p; ints that carry sizes are c_int / c_longlong.
 KERNELS = {
-    "topk": ("warpdb_topk_candidates", [_P, _LL, _I, _P, _I, _P]),
-    "group_hist": (
-        "warpdb_group_hist",
-        [_P, _LL, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
-    ),
-    "windowed_expand": (
-        "warpdb_windowed_expand",
-        [_P, _LL, _LL, _P, _I, _P, _LL, _P, _P, _P, _LL, _P],
-    ),
-    "uniform_expand": (
-        "warpdb_uniform_expand", [_P, _I, _LL, _LL, _LL, _P, _LL, _P],
-    ),
-    "sorted_take": (
-        "warpdb_sorted_take", [_P, _I, _P, _P, _LL, _P, _LL, _I, _P],
-    ),
+    "topk": {"warpdb_topk": [_P, _LL, _I, _P, _P, _P, _I, _I, _P]},
+    "group_hist": {
+        "warpdb_group_hist": [_P, _LL, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                              _I, _I, _I, _I, _U, _I, _I, _I, _I, _I, _I,
+                              _P],
+        "warpdb_group_hist_clusters": [_I, _I, _I, _I, _I, _I, _P],
+    },
+    "windowed_expand": {
+        "warpdb_windowed_expand":
+            [_P, _LL, _LL, _P, _I, _P, _LL, _P, _P, _P, _LL, _P],
+    },
+    "uniform_expand": {
+        "warpdb_uniform_expand": [_P, _I, _LL, _LL, _LL, _P, _LL, _P],
+    },
+    "sorted_take": {
+        "warpdb_sorted_take": [_P, _I, _P, _P, _LL, _P, _LL, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -114,10 +117,10 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         path = _compile(name)
         lib = ctypes.CDLL(str(path))
-        symbol, argtypes = KERNELS[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in KERNELS[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
         return lib
 

@@ -101,9 +101,9 @@ def top_k_values(values: torch.Tensor, mask, k: int,
     """First ``k`` values of the sorted order (ORDER BY … LIMIT k).
 
     Invalid rows become ±inf; the problem turns into "k largest" in
-    descending-priority space; kernel K1 shrinks the input to a candidate
-    table and one ``torch.topk`` finishes.  Callers gate this on order
-    keys that provably cannot be NaN."""
+    descending-priority space; kernel K1 returns its top row sorted, and
+    the first k are the answer.  Callers gate this on order keys that
+    provably cannot be NaN."""
     inf = float("inf") if ascending else float("-inf")
     v = values if mask is None else torch.where(mask, values, inf)
     u = -v if ascending else v
@@ -111,8 +111,9 @@ def top_k_values(values: torch.Tensor, mask, k: int,
     if n == 0:
         return torch.full((k,), inf, dtype=values.dtype, device=values.device)
     if 1 < k <= MAX_K:
-        u = topk_candidates(u, k).reshape(-1)
-    top = torch.topk(u, min(k, u.shape[0])).values
+        top = topk_candidates(u, k)[0, :k]
+    else:
+        top = torch.topk(u, min(k, n)).values
     if top.shape[0] < k:
         pad = torch.full((k - top.shape[0],), float("-inf"),
                          dtype=top.dtype, device=top.device)

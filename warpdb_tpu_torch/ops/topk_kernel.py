@@ -1,17 +1,19 @@
-"""Kernel K1: top-k candidates for ORDER BY ... LIMIT.
+"""Kernel K1: top-k for ORDER BY ... LIMIT.
 
 Replaces ``warpdb_tpu/ops/pallas_topk.py:pallas_topk_candidates`` (the
 streaming per-lane top-k Pallas kernel).  The CUDA kernel is
-``csrc/topk.cu``: a grid-stride pass keeps a sorted top-k per thread in
-registers, then each block merges its threads' lists into k candidates.
-It reads every input byte once, so it is bound by device-memory
+``csrc/topk.cu``: one launch streams the input with 16-byte loads, keeps
+each warp's top-k in shared memory behind a warp-wide threshold, merges
+the warps' lists in each block and the blocks' lists in the last block to
+finish.  It reads every input byte once, so it is bound by device-memory
 bandwidth; see the source for the design.
 
 Contract: ``u`` is f32[n] in descending-priority space (invalid rows
--inf, no NaN), ``1 < k <= 128``, any n.  The result is a 2-D candidate
-tensor whose multiset contains the top-k multiset of ``u``, duplicates
-included; :func:`warpdb_tpu_torch.ops.sort.top_k_values` finishes it with
-one ``torch.topk``.
+-inf, no NaN), ``1 < k <= 128``, any n.  The result is a ``(1, w)`` row
+sorted descending whose first k values are the top-k multiset of ``u``,
+duplicates included, padded with -inf where ``n < k``: ``w`` is
+``kernel_k(k)`` from the kernel and ``k`` from the plain version.
+:func:`warpdb_tpu_torch.ops.sort.top_k_values` takes its first k.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 :func:`topk_candidates_plain`.  ``topk_candidates.launches`` counts the
@@ -24,10 +26,14 @@ import torch
 
 from ..errors import ExecutionError
 
-__all__ = ["topk_candidates", "topk_candidates_plain", "kernel_k", "MAX_K"]
+__all__ = ["topk_candidates", "topk_candidates_plain", "kernel_k", "MAX_K",
+           "THREADS", "UNROLL"]
 
 MAX_K = 128
-_BLOCKS_PER_SM = 4
+# One block of THREADS an SM; each lane keeps UNROLL 16-byte loads in
+# flight (8 measured faster than 4, PERF.md).
+THREADS = 1024
+UNROLL = 8
 
 
 def kernel_k(k: int) -> int:
@@ -41,9 +47,15 @@ def kernel_k(k: int) -> int:
     return kk
 
 
+def grid_size(n: int, sms: int, unroll: int = UNROLL) -> int:
+    """Blocks of one launch: one an SM, fewer where the input gives each
+    lane fewer than ``unroll`` 16-byte units."""
+    return max(1, min(sms, -(-n // (THREADS * unroll * 4))))
+
+
 def topk_candidates_plain(u: torch.Tensor, k: int) -> torch.Tensor:
     """Plain PyTorch version: the top-k of ``u`` itself, as a (1, k)
-    candidate table padded with -inf."""
+    row sorted descending, padded with -inf."""
     kernel_k(k)
     n = u.shape[0]
     top = torch.topk(u, min(k, n)).values
@@ -54,8 +66,18 @@ def topk_candidates_plain(u: torch.Tensor, k: int) -> torch.Tensor:
     return top.reshape(1, k)
 
 
-def topk_candidates(u: torch.Tensor, k: int) -> torch.Tensor:
-    """(blocks, kernel_k(k)) candidate table of ``u`` (see module doc)."""
+# Per (device, stream): a zeroed ticket, which the kernel's last block
+# resets, and the blocks' scratch lists; launches on one stream reuse
+# both in order.
+_scratch: dict = {}
+_sms: dict = {}
+
+
+def topk_candidates(u: torch.Tensor, k: int, *,
+                    unroll: int = UNROLL) -> torch.Tensor:
+    """(1, kernel_k(k)) sorted top row of ``u`` (see module doc).
+    ``unroll`` (4 or 8 16-byte loads a lane in flight) forces a variant
+    that ``chip_smoke.py`` measures."""
     if u.device.type == "cpu":
         return topk_candidates_plain(u, k)
     if u.device.type != "cuda":
@@ -70,14 +92,26 @@ def topk_candidates(u: torch.Tensor, k: int) -> torch.Tensor:
     kk = kernel_k(k)
     u = u.contiguous()
     n = u.shape[0]
-    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
-    grid = max(1, min(sms * _BLOCKS_PER_SM, -(-n // 128)))
-    out = torch.empty((grid, kk), dtype=torch.float32, device=u.device)
+    dev = u.device
+    sms = _sms.get(dev.index)
+    if sms is None:
+        sms = _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch.get((dev.index, stream))
+    if scratch is None:
+        # The ticket, then room for every block's list at the widest k.
+        scratch = _scratch[(dev.index, stream)] = torch.zeros(
+            1 + sms * MAX_K, dtype=torch.int32, device=dev)
+    if unroll not in (4, 8):
+        raise ExecutionError(f"top-k kernel: no unroll of {unroll}")
+    grid = grid_size(n, sms, unroll)
+    ticket, blocks = scratch[:1], scratch[1:].view(torch.float32)
+    out = torch.empty((1, kk), dtype=torch.float32, device=dev)
     lib = _build.load("topk")
-    rc = lib.warpdb_topk_candidates(
-        u.data_ptr(), n, kk, out.data_ptr(), grid,
-        torch.cuda.current_stream(u.device).cuda_stream,
-    )
+    rc = lib.warpdb_topk(u.data_ptr(), n, kk, blocks.data_ptr(),
+                         out.data_ptr(), ticket.data_ptr(), grid, unroll,
+                         stream)
     if rc != 0:
         raise ExecutionError(f"top-k kernel launch failed: CUDA error {rc}")
     topk_candidates.launches += 1
