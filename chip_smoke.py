@@ -20,7 +20,8 @@ Phases, each raising on failure:
    shapes beside its plain version, the one PyTorch call computing the
    same function where there is one, and its bound (bytes over the card's
    memory rate), K1 and K2 also by ``torch.profiler`` device time and K1
-   also without the finish; and a table of K1's and K2's design variants.
+   also without the finish; and a table of K1 and K2 at other inputs
+   (each k, ascending and duplicate values, skewed ids, nv = 4).
    ``--kernels`` stops here, after printing each kernel instance's ptxas
    usage;
 4. slice: ``WarpDB(..., device="cuda")`` over bench.py's table (2^25
@@ -486,8 +487,9 @@ def phase_kernels(topk, group) -> tuple:
 
 
 def _variants(topk, group, top_k_values, u, pool_d, g) -> list:
-    """K1 and K2 at the variants of their designs (2^25 rows): CUDA-event
-    and profiler ms per call and the bound of the same work."""
+    """K1 and K2 at other inputs than the slice's (2^25 rows): each k,
+    ascending and duplicate values, skewed ids, four value columns.
+    CUDA-event and profiler ms per call and the bound of the same work."""
     asc = torch.sort(u).values
     dup = torch.from_numpy(
         g.choice(np.float32([1.0, 2.0, 3.0, 99.5]), ROWS)).cuda()
@@ -505,48 +507,16 @@ def _variants(topk, group, top_k_values, u, pool_d, g) -> list:
                      ROWS * 4 + k * 4))
     rows.append(("K1 duplicates k=16", lambda: topk.topk_candidates(dup, 16),
                  K1_NAMES, ROWS * 4 + 64))
-    other = 12 - topk.UNROLL  # the other load depth, 4 or 8
-    for k in (16, 128):
-        rows.append((f"K1 random k={k}, kernel alone, unroll {other}",
-                     lambda k=k: topk.topk_candidates(u, k, unroll=other),
-                     K1_NAMES, ROWS * 4 + k * 4))
-    rows.append((f"K1 duplicates k=16, unroll {other}",
-                 lambda: topk.topk_candidates(dup, 16, unroll=other),
-                 K1_NAMES, ROWS * 4 + 64))
     for slots in (4097, KEY_SLOTS):
         ids = {case: torch.from_numpy(_group_ids(g, case, slots, ROWS)).cuda()
                for case in ("uniform", "one_slot", "zipf")}
         table = slots * 8
-        # Each design at each cluster size, both flushes; the multicast
-        # ring at other depths and block sizes.
-        forced = [dict(design=d, slices=c, atomic_flush=f)
-                  for d in group.DESIGNS for c in (1, 2, 3, 4, 6, 8, 16)
-                  for f in (False, True)
-                  if d == "local" or c in group.CLUSTER_SIZES]
-        forced += [dict(design="multicast", stages=st, threads=th)
-                   for st in (2, 4, 6) for th in (512, 1024)]
-        forced += [dict(slices=c, threads=th) for c in (3, 4, 8)
-                   for th in (256, 512)]
-        for kw in forced:
-            plan_kw = {k: v for k, v in kw.items() if k != "atomic_flush"}
-            try:
-                plan = group.cluster_plan(slots, 1, 1, **plan_kw)
-            except Exception:
-                continue  # the slices do not fit this cluster
-            flush = "atomic" if kw.get("atomic_flush") else "partials"
-            rows.append((
-                f"K2 slots={slots} nv=1 {plan.design} slices={plan.slices} "
-                f"stages={plan.stages} T={plan.T} threads={plan.threads} "
-                f"{flush} flush",
-                lambda kw=kw, d=ids["uniform"], ns=slots:
-                    group.group_counts_sums(d, [u], ns, **kw),
-                K2_NAMES, ROWS * 8 + table))
         for case in ("uniform", "one_slot", "zipf"):
-            rows.append((f"K2 slots={slots} nv=1 {case} ids, default plan",
+            rows.append((f"K2 slots={slots} nv=1 {case} ids",
                          lambda d=ids[case], ns=slots: group.group_counts_sums(
                              d, [u], ns),
                          K2_NAMES, ROWS * 8 + table))
-        rows.append((f"K2 slots={slots} nv=4 uniform ids, default plan",
+        rows.append((f"K2 slots={slots} nv=4 uniform ids",
                      lambda d=ids["uniform"], ns=slots: group.group_counts_sums(
                          d, pool_d[:4], ns),
                      K2_NAMES, ROWS * 20 + slots * 20))
@@ -977,7 +947,7 @@ def main(argv: list) -> int:
         log(f"  {kname} {t['shape']}: kernel {t['ms']!r} ms, plain "
             f"{t['plain_ms']!r} ms, library {lib}, bound {t['bound_ms']!r} "
             f"ms = {100 * t['bound_ms'] / t['ms']!r}%{extra} [{name}]")
-    log(f"K1/K2 design variants on {name} (n={ROWS}; CUDA events, mean of "
+    log(f"K1/K2 at other inputs on {name} (n={ROWS}; CUDA events, mean of "
         "20 calls; profiler device time of the kernels a call; bound):")
     for what, ev, dev, bd in variants:
         share = "" if dev is None else f" = {100 * bd / dev!r}% of the device time"

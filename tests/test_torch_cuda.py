@@ -52,17 +52,6 @@ def test_topk_kernel_matches_plain(cuda, case, k, n):
     assert torch.equal(cand[0], want)  # the row is sorted
 
 
-@pytest.mark.parametrize("unroll", [4, 8])
-@pytest.mark.parametrize("k", [16, 128])
-@pytest.mark.parametrize("case", ["random", "ascending", "duplicates"])
-@pytest.mark.parametrize("n", [(1 << 22) + 5, 100_000])
-def test_topk_kernel_load_depths(cuda, n, case, k, unroll):
-    xd = torch.from_numpy(_topk_input(case, n)).to(cuda)
-    got = topk_kernel.topk_candidates(xd, k, unroll=unroll)[0]
-    torch.cuda.synchronize()
-    assert torch.equal(got, topk_kernel.topk_candidates_plain(xd, k)[0])
-
-
 @pytest.mark.parametrize("k", [16, 32, 64, 128])
 @pytest.mark.parametrize("case", ["random", "ascending", "duplicates"])
 @pytest.mark.parametrize("shift", [1, 2, 3])
@@ -116,11 +105,11 @@ def _group_ids(case: str, num_slots: int, n: int, rng) -> np.ndarray:
     return gid
 
 
-def _check_group(gid, vals, num_slots, **variant):
+def _check_group(gid, vals, num_slots):
     gd = torch.from_numpy(gid).cuda()
     vd = [torch.from_numpy(v).cuda() for v in vals]
     before = group_kernel.group_counts_sums.launches
-    c, s = group_kernel.group_counts_sums(gd, vd, num_slots, **variant)
+    c, s = group_kernel.group_counts_sums(gd, vd, num_slots)
     cp, sp = group_kernel.group_counts_sums_plain(gd, vd, num_slots)
     torch.cuda.synchronize()
     assert group_kernel.group_counts_sums.launches == before + max(
@@ -160,42 +149,6 @@ def test_group_kernel_skewed_ids(cuda, num_slots, case, nv):
     _check_group(gid, vals, num_slots)
 
 
-@pytest.mark.parametrize("atomic_flush", [False, True])
-@pytest.mark.parametrize("design", group_kernel.DESIGNS)
-@pytest.mark.parametrize("slices", [1, 2, 3, 4, 8, 16])
-@pytest.mark.parametrize("num_slots", [4097, 65536])
-def test_group_kernel_design_variants(cuda, num_slots, slices, design,
-                                      atomic_flush):
-    from warpdb_tpu_torch.errors import ExecutionError
-
-    rng = np.random.default_rng(35)
-    n = (1 << 20) + 7
-    gid = _group_ids("uniform", num_slots, n, rng)
-    vals = [rng.uniform(0, 100, n).astype(np.float32) for _ in range(2)]
-    try:
-        group_kernel.cluster_plan(num_slots, 1, 2, slices, design)
-    except ExecutionError as e:
-        with pytest.raises(ExecutionError, match=str(e)[:30]):
-            group_kernel.group_counts_sums(
-                torch.from_numpy(gid).cuda(),
-                [torch.from_numpy(v).cuda() for v in vals], num_slots,
-                slices=slices, design=design)
-        return
-    _check_group(gid, vals, num_slots, slices=slices, design=design,
-                 atomic_flush=atomic_flush)
-
-
-@pytest.mark.parametrize("stages,threads", [(2, 1024), (4, 512), (8, 256)])
-@pytest.mark.parametrize("num_slots", [16385, 65536])
-def test_group_kernel_multicast_rings(cuda, num_slots, stages, threads):
-    rng = np.random.default_rng(37)
-    n = (1 << 20) + 9
-    gid = _group_ids("zipf", num_slots, n, rng)
-    vals = [rng.uniform(0, 100, n).astype(np.float32)]
-    _check_group(gid, vals, num_slots, design="multicast", stages=stages,
-                 threads=threads)
-
-
 @pytest.mark.parametrize("shifts", [(1, 1), (3, 3), (0, 1), (2, 0)])
 def test_group_kernel_unaligned_columns(cuda, shifts):
     # Ids and values at the same offset from 16 bytes take the 16-byte
@@ -205,13 +158,13 @@ def test_group_kernel_unaligned_columns(cuda, shifts):
     gid = _group_ids("uniform", 40000, n + 3, rng)
     v = rng.uniform(0, 100, n + 3).astype(np.float32)
     gs, vs = shifts
-    _check_group(gid[gs:gs + n], [v[vs:vs + n]], 40000)
     gd = torch.from_numpy(gid).cuda()[gs:gs + n]
     vd = torch.from_numpy(v).cuda()[vs:vs + n]
     c, (s,) = group_kernel.group_counts_sums(gd, [vd], 40000)
     cp, (sp,) = group_kernel.group_counts_sums_plain(gd, [vd], 40000)
+    torch.cuda.synchronize()
     assert torch.equal(c, cp)
-    torch.testing.assert_close(s, sp, rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(s, sp, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("num_slots", [4097, 65536])
@@ -219,7 +172,7 @@ def test_group_kernel_non_finite_values(cuda, num_slots):
     # ±inf and NaN reach only their own slot, also in a hot warp.
     n = 1 << 16
     gid = torch.arange(n, dtype=torch.int32, device=cuda) % 64
-    gid[1024:1152] = 7  # one warp's 32 units of 4 rows on one slot
+    gid[1024:1152] = 7  # 128 rows on one slot: the warps' hot-slot path
     v = torch.ones(n, device=cuda)
     v[3], v[12], v[1030], v[200] = (float("inf"), float("-inf"),
                                     float("nan"), float("inf"))

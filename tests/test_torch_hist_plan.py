@@ -1,13 +1,11 @@
-"""A NumPy model of kernel K2's cluster designs (csrc/group_hist.cu).
+"""A NumPy model of kernel K2's design (csrc/group_hist.cu).
 
 The CUDA kernel runs only on a card; here its arithmetic is modelled
-step by step from the wrapper's own plan (``cluster_plan``): which block
-of a cluster owns each slot (``umulhi(g, magic)``), the slice bounds at
-ragged slot counts, the shared memory of a block (slice and tile ring),
-which group of blocks each row lands in (local: 16-byte units
-grid-strided over the groups; multicast: tiles of T rows round-robin
-over the clusters, the rows outside the tiles by blocks of rows; remote:
-16-byte units grid-strided over all blocks), the per-cluster f32 tables, the
+step by step from the wrapper's own plan (``slice_plan``): which slice
+owns each slot (``umulhi(g, magic)``), the slice bounds at ragged slot
+counts, the shared memory and threads of a block, which group of blocks
+each row lands in (16-byte units grid-strided over the groups, the
+unaligned head and the tail one a lane), the per-group f32 tables, the
 partials buffer and the combine (counts in i32, sums in f64).  The model
 is held against the plain version and a float64 ``np.bincount``.
 """
@@ -19,10 +17,11 @@ import torch
 from warpdb_tpu_torch.errors import ExecutionError
 from warpdb_tpu_torch.ops import group_kernel
 from warpdb_tpu_torch.ops.group_kernel import (
-    CLUSTER_SIZES, DESIGNS, MAX_SLOTS, SMEM_BYTES, cluster_plan,
+    MAX_SLOTS, SLICE_BYTES, slice_plan,
 )
 
 RAGGED = [1, 2, 3, 4097, 6000, 16385, 40000, 65535, 65536]
+WIDTHS = [(1, 0), (1, 1), (1, 4), (0, 1), (0, 4)]  # (has_count, nv)
 
 
 def _owner(g: np.ndarray, magic: int) -> np.ndarray:
@@ -30,74 +29,34 @@ def _owner(g: np.ndarray, magic: int) -> np.ndarray:
     return (g.astype(np.uint64) * np.uint64(magic)) >> np.uint64(32)
 
 
-@pytest.mark.parametrize("design", DESIGNS)
+@pytest.mark.parametrize("hc,nv", WIDTHS)
 @pytest.mark.parametrize("num_slots", RAGGED)
-@pytest.mark.parametrize("slices", [1, 2, 3, 4, 8, 16])
-def test_slot_to_owner_is_a_bijection(slices, num_slots, design):
-    words = 2
-    if design != "local" and slices not in CLUSTER_SIZES:
-        with pytest.raises(ExecutionError, match="no cluster of 3"):
-            cluster_plan(num_slots, 1, 1, slices, design)
-        return
-    slice_bytes = max(-(-num_slots // slices), 2 if slices > 1 else 1) * 8
-    ring = 3 * 1024 * 8 if design == "multicast" else 0
-    if slice_bytes + ring > SMEM_BYTES:
-        with pytest.raises(ExecutionError, match="do not fit"):
-            cluster_plan(num_slots, 1, 1, slices, design)
-        return
-    p = cluster_plan(num_slots, 1, 1, slices, design)
-    S = p.S
-    assert p.design == design and p.slices == slices
-    assert p.cluster == (1 if design == "local" else slices)
-    assert S * words * 4 <= p.smem <= SMEM_BYTES
-    assert p.threads % 32 == 0 and 0 < p.threads <= 1024
-    if design == "multicast":
-        # The ring: stages tiles of T rows of id + value, 16-byte shares.
-        assert p.T >= 1024 and p.T % 1024 == 0 and p.T % (4 * slices) == 0
-        assert p.smem == (-(-S * words * 4 // 128) * 128 + 8 * p.stages
-                          + p.stages * p.T * 8)
-        assert p.smem + p.stages * 1024 * 8 > SMEM_BYTES or p.T == 16384
-    else:
-        assert p.T == 0 and p.smem == S * words * 4
-    assert slices * S >= num_slots and (slices == 1 or S >= 2)
+def test_slot_to_owner_is_a_bijection(num_slots, hc, nv):
+    p = slice_plan(num_slots, hc, nv)
+    words, S, R = hc + nv, p.S, p.slices
+    # The fewest slices of at most SLICE_BYTES, each within a block.
+    assert p.smem == S * words * 4 <= SLICE_BYTES
+    if R > 1:
+        assert -(-num_slots // (R - 1)) * words * 4 > SLICE_BYTES
+    # Up to four blocks an SM, 1024 threads an SM in all.
+    per_sm = min(4, 233_472 // (p.smem + 1024))
+    assert p.threads == 1024 // per_sm // 32 * 32
+    assert R * S >= num_slots and (R == 1 or S >= 2)
     g = np.arange(num_slots, dtype=np.int64)
     owner = _owner(g, p.magic).astype(np.int64)
     np.testing.assert_array_equal(owner, g // S)
     local = g - owner * S
-    assert owner.max() < slices and local.min() >= 0 and local.max() < S
+    assert owner.max() < R and local.min() >= 0 and local.max() < S
     # The flush writes slice r's local l to slot r * S + l: every slot once.
     np.testing.assert_array_equal(owner * S + local, g)
 
 
 def test_magic_is_exact_over_the_whole_id_range():
     g = np.arange(MAX_SLOTS, dtype=np.int64)
-    for S in (2, 3, 5, 7, 513, 4097, 5000, 8192, 16385, 32767, 32768):
+    for S in (2, 3, 5, 7, 513, 4097, 5000, 8192, 9363, 16385, 21846, 32768):
         magic = -(-(1 << 32) // S)
         np.testing.assert_array_equal(_owner(g, magic).astype(np.int64),
                                       g // S, err_msg=f"S={S}")
-
-
-@pytest.mark.parametrize("hc,nv", [(1, 0), (1, 1), (1, 4), (0, 1), (0, 4)])
-@pytest.mark.parametrize("num_slots", RAGGED)
-def test_default_plan_fits_every_contract_shape(num_slots, hc, nv):
-    p = cluster_plan(num_slots, hc, nv)
-    words = hc + nv
-    assert p.design == "local" and p.cluster == 1 and p.smem <= SMEM_BYTES
-    # The fewest slices of at most 200 KB.
-    assert p.S * words * 4 <= 200 * 1024
-    if p.slices > 1:
-        assert -(-num_slots // (p.slices - 1)) * words * 4 > 200 * 1024
-    # Up to four blocks an SM, 1024 threads an SM in all.
-    per_sm = min(4, 233_472 // (p.smem + 1024))
-    assert p.threads == 1024 // per_sm // 32 * 32
-
-
-@pytest.mark.parametrize("stages", [2, 3, 4, 6, 8])
-def test_multicast_ring_sizes(stages):
-    p = cluster_plan(65536, 1, 1, 4, "multicast", stages, 512)
-    assert (p.design, p.slices, p.cluster) == ("multicast", 4, 4)
-    assert (p.stages, p.threads) == (stages, 512)
-    assert p.smem <= SMEM_BYTES < p.smem + stages * 1024 * 8
 
 
 @pytest.mark.parametrize("num_slots", [0, -1, MAX_SLOTS + 1, 1 << 20])
@@ -108,65 +67,40 @@ def test_slot_limit_is_refused_on_both_devices(num_slots):
     with pytest.raises(ExecutionError, match=f"1..{MAX_SLOTS} slots"):
         group_kernel.group_counts_sums_plain(gid, [], num_slots)
     with pytest.raises(ExecutionError, match=f"1..{MAX_SLOTS} slots"):
-        cluster_plan(num_slots, 1, 1)
+        slice_plan(num_slots, 1, 1)
 
 
-def test_forced_variants_must_exist():
-    with pytest.raises(ExecutionError, match="no cluster of 3"):
-        cluster_plan(6000, 1, 1, 3, "multicast")
-    with pytest.raises(ExecutionError, match="no design"):
-        cluster_plan(6000, 1, 1, design="atomics")
-    with pytest.raises(ExecutionError, match="no cut into 0 slices"):
-        cluster_plan(6000, 1, 1, 0)
-    for stages in (1, 9):
-        with pytest.raises(ExecutionError, match="no ring"):
-            cluster_plan(6000, 1, 1, design="multicast", stages=stages)
-    for threads in (1056, 100, 0):
-        with pytest.raises(ExecutionError, match="no block of"):
-            cluster_plan(6000, 1, 1, threads=threads)
-
-
-def model_group_hist(gid, vals, num_slots, slices, groups, head=0,
-                     design="local"):
+def model_group_hist(gid, vals, num_slots, groups, head=0):
     """The kernel's per-group tables, partials and combine, in NumPy."""
     n = gid.shape[0]
     hc, nv = 1, len(vals)
     words = hc + nv
-    p = cluster_plan(num_slots, hc, nv, slices, design)
-    C, S, magic, T, threads = p.slices, p.S, p.magic, p.T, p.threads
+    p = slice_plan(num_slots, hc, nv)
+    R, S, magic, threads = p.slices, p.S, p.magic, p.threads
     head = min(head, n)
-    body = T if design == "multicast" else 4  # rows a tile or a unit
-    nbody = (n - head) // body
-    tail0 = head + body * nbody
-    # Which group of blocks adds each row.
+    nvec = (n - head) // 4
+    tail0 = head + 4 * nvec
+    # Which group of blocks adds each row: thread t of the group's
+    # `stride` threads takes units (and scalar rows) t, t + stride, ...
+    stride = groups * threads
     scalar = np.concatenate([np.arange(head), np.arange(tail0, n)])
     inner = np.arange(head, tail0)
-    cid = np.empty(n, np.int64)
-    if design == "multicast":
-        cid[inner] = ((inner - head) // T) % groups
-        cid[scalar] = (np.arange(scalar.shape[0]) // threads) % groups
-    elif design == "local":
-        stride = groups * threads
-        cid[inner] = ((inner - head) // 4) % stride // threads
-        cid[scalar] = np.arange(scalar.shape[0]) % stride // threads
-    else:
-        stride = groups * C * threads
-        cid[inner] = ((inner - head) // 4) % stride // threads // C
-        cid[scalar] = np.arange(scalar.shape[0]) % stride // threads // C
-    clusters = groups
+    gi = np.empty(n, np.int64)
+    gi[inner] = ((inner - head) // 4) % stride // threads
+    gi[scalar] = np.arange(scalar.shape[0]) % stride // threads
     ok = (gid >= 0) & (gid < num_slots)
     g = np.where(ok, gid, 0).astype(np.int64)
     owner = _owner(g, magic).astype(np.int64)
     local = g - owner * S
-    table = np.zeros((clusters, C, words, S), np.float32)
-    counts = np.zeros((clusters, C, S), np.int64)
-    np.add.at(counts, (cid[ok], owner[ok], local[ok]), 1)
+    table = np.zeros((groups, R, words, S), np.float32)
+    counts = np.zeros((groups, R, S), np.int64)
+    np.add.at(counts, (gi[ok], owner[ok], local[ok]), 1)
     for c, v in enumerate(vals):
-        np.add.at(table, (cid[ok], owner[ok], c + 1, local[ok]), v[ok])
-    # Flush: block r of cluster k writes its slice to partials[k, w, r*S:].
-    partial_c = np.zeros((clusters, num_slots), np.int64)
-    partial_s = np.zeros((clusters, nv, num_slots), np.float32)
-    for r in range(C):
+        np.add.at(table, (gi[ok], owner[ok], c + 1, local[ok]), v[ok])
+    # Flush: slice r of group k goes to partials[k, w, r*S:].
+    partial_c = np.zeros((groups, num_slots), np.int64)
+    partial_s = np.zeros((groups, nv, num_slots), np.float32)
+    for r in range(R):
         lo, hi = r * S, min((r + 1) * S, num_slots)
         if hi > lo:
             partial_c[:, lo:hi] = counts[:, r, : hi - lo]
@@ -190,21 +124,19 @@ def _ids(case: str, num_slots: int, n: int, rng) -> np.ndarray:
     return gid
 
 
-@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("head", [0, 3])
 @pytest.mark.parametrize("case", ["uniform", "one_slot", "zipf"])
-@pytest.mark.parametrize("num_slots,slices,groups", [
-    (4097, 1, 5), (4097, 4, 3), (6000, 2, 2), (16385, 8, 2),
-    (40000, 16, 1), (65536, 8, 3),
+# Slices 1 (4097, 6000), 2 (40000), 3 (65536 at nv = 1) and 7 (65536 at
+# nv = 4); group counts as the wrapper would pick for a small input.
+@pytest.mark.parametrize("num_slots,nv,groups", [
+    (4097, 1, 5), (6000, 2, 2), (40000, 1, 3), (65536, 1, 2), (65536, 4, 1),
 ])
-def test_model_matches_plain_and_float64(num_slots, slices, groups, case,
-                                         head, design):
-    rng = np.random.default_rng(num_slots + slices)
+def test_model_matches_plain_and_float64(num_slots, nv, groups, case, head):
+    rng = np.random.default_rng(num_slots + nv)
     n = 50_003
     gid = _ids(case, num_slots, n, rng)
-    vals = [rng.uniform(0, 100, n).astype(np.float32) for _ in range(2)]
-    got_c, got_s = model_group_hist(gid, vals, num_slots, slices, groups,
-                                    head, design)
+    vals = [rng.uniform(0, 100, n).astype(np.float32) for _ in range(nv)]
+    got_c, got_s = model_group_hist(gid, vals, num_slots, groups, head)
     want_c, want_s = group_kernel.group_counts_sums_plain(
         torch.from_numpy(gid), [torch.from_numpy(v) for v in vals], num_slots)
     np.testing.assert_array_equal(got_c, want_c.numpy())

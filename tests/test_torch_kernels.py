@@ -199,7 +199,7 @@ class _Warp:
             self.offer(units[j // 4, :, j % 4])
 
 
-def model_topk(x, K, threads=64, grid=3, head=0, unroll=topk_kernel.UNROLL):
+def model_topk(x, K, threads=64, grid=3, head=0):
     n = x.shape[0]
     head = min(head, n)
     nvec = (n - head) // 4
@@ -223,6 +223,7 @@ def model_topk(x, K, threads=64, grid=3, head=0, unroll=topk_kernel.UNROLL):
             first[: got.shape[0], 0] = got
             yield np.stack([first, ninf4, ninf4, ninf4])
         u = t0
+        unroll = topk_kernel.UNROLL
         while u + (unroll - 1) * stride + 31 < nvec:
             for m0 in range(0, unroll, 4):
                 yield np.stack([unit_rows(u + m * stride)
@@ -282,10 +283,10 @@ def test_bitonic_networks_sort_and_merge(L):
         np.testing.assert_array_equal(a, want.astype(np.float32))
 
 
-@pytest.mark.parametrize("unroll,head", [(8, 0), (8, 1), (8, 3), (4, 2)])
+@pytest.mark.parametrize("head", [0, 1, 2, 3])
 @pytest.mark.parametrize("K", [16, 32, 64, 128])
 @pytest.mark.parametrize("case", ["random", "ascending", "duplicates", "ties"])
-def test_topk_model_matches_sort(case, K, head, unroll):
+def test_topk_model_matches_sort(case, K, head):
     n = 12_345
     if case == "ties":
         # Many values equal to the K-th largest: the strict test must
@@ -295,7 +296,7 @@ def test_topk_model_matches_sort(case, K, head, unroll):
         x[:K // 2] = np.float32(6.0)
     else:
         x = _topk_input(case, n, seed=K)
-    got = model_topk(x, K, threads=64, grid=3, head=head, unroll=unroll)
+    got = model_topk(x, K, threads=64, grid=3, head=head)
     np.testing.assert_array_equal(got, np.sort(x)[::-1][:K])
 
 

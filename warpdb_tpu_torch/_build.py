@@ -39,12 +39,11 @@ _LL = ctypes.c_longlong
 # kernel name -> {C entry point: argtypes}.  Every pointer and the stream
 # are c_void_p; ints that carry sizes are c_int / c_longlong.
 KERNELS = {
-    "topk": {"warpdb_topk": [_P, _LL, _I, _P, _P, _P, _I, _I, _P]},
+    "topk": {"warpdb_topk": [_P, _LL, _I, _P, _P, _P, _I, _P]},
     "group_hist": {
         "warpdb_group_hist": [_P, _LL, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                              _I, _I, _I, _I, _U, _I, _I, _I, _I, _I, _I,
-                              _P],
-        "warpdb_group_hist_clusters": [_I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _U, _I, _I, _P],
+        "warpdb_group_hist_blocks": [_I, _I, _I, _I, _P],
     },
     "windowed_expand": {
         "warpdb_windowed_expand":

@@ -13,37 +13,26 @@
 // at the L2 atomic units' rate, 8.7% of the bound.
 //
 // Hopper design: the slot table lives in shared memory, cut into R slices
-// of S = ceil(slots / R) slots, (count + nv) words a slot, one slice a
-// block (up to 227 KB a block).  Every add is a shared-memory atomic on
-// the block's own slice; where most lanes of a warp hit one slot (a hot,
-// skewed key) the warp sums them with shuffles and adds once.  Each group
-// of blocks flushes its table to a partials buffer [groups, words, slots],
-// which stays in L2, and a second small pass adds the partials (counts in
-// i32, sums in f64, cast to f32: closer to float64 than one f32 chain a
-// slot).  Three ways to bring the rows to the slices were built and
-// measured (PERF.md, chip_smoke.py's table, H100 SXM at 700 W):
+// of S = ceil(slots / R) slots, (count + nv) words a slot, of at most
+// 200 KB each (R = 1 up to ~25,000 slots at nv = 1; 3 at 65536).  Blocks
+// run in groups of R, block b owning slice b % R; every block of a group
+// streams all of the group's rows with 16-byte loads and adds the ones it
+// owns with shared-memory atomics on its own slice, so no add leaves the
+// SM; the R - 1 extra reads of a row come from L2.  Where most lanes of a
+// warp hit one slot (a skewed key) the warp sums them with shuffles and
+// adds once.  Each group flushes its table to a partials buffer [groups,
+// words, slots], which stays in L2, and a second small pass adds the
+// partials (counts in i32, sums in f64, cast to f32: closer to float64
+// than one f32 chain a slot).
 //
-//   local (the default): plain blocks in groups of R, one slice each,
-//     every block streaming all of its group's rows with 16-byte loads and
-//     adding the ones it owns; the R - 1 extra reads of a row hit L2.  At
-//     R = 1 (tables up to 200 KB, e.g. 4097 slots) it ran at ~57% of the
-//     bound, held by the shared-memory atomics; each more slice costs one
-//     more read of the rows from L2 (65536 slots at nv = 1 take R = 3,
-//     ~29%).
-//   multicast: a thread-block cluster of R blocks; each block issues one
-//     TMA bulk copy a column of its 1/R share of a tile, multicast to all R
-//     blocks and counted on each block's mbarrier, in a ring of tiles; a
-//     split cluster barrier keeps a stage until every block has read it.
-//     It paid a fixed cost per tile (microseconds) whatever R, and ran
-//     slower than the local design at every R (2x at 65536 slots).
-//   remote: a cluster of R blocks, each streaming its own rows and adding
-//     each into the owner's slice through distributed shared memory
-//     (`mapa` + `red.shared::cluster`).  Remote reductions ran far below
-//     local ones: R = 2 was 4x slower than R = 1, R >= 4 slower than the
-//     global-atomic kernel this one replaced.
-//
-// The flush may also add the tables into the outputs with global atomics
-// (`atomic_flush`, outputs zeroed by the caller), measured no faster.
+// Measured on an H100 SXM at 700 W (PERF.md): ~57% of the bound at R = 1,
+// held by the shared-memory atomics; each more slice costs one more read
+// of the rows from L2 (65536 slots at nv = 1, R = 3: ~29%).  Two cluster
+// designs were built and measured slower at every size: a thread-block
+// cluster of R blocks fed by TMA multicast paid microseconds a tile in
+// its mbarrier and cluster-barrier ring, and adds into the owner's slice
+// through distributed shared memory (red.shared::cluster) ran below the
+// global-atomic kernel this one replaced from R = 4 on.
 //
 // Sums of one slot add in a run-dependent order (and per group first), so
 // they differ from a sequential sum in the last bits.  Ids outside
@@ -51,16 +40,12 @@
 // value columns).  Launches on the caller's stream, allocates nothing,
 // returns the first CUDA error code.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kMaxStages = 8;  // the multicast design's ring
 constexpr int kCombineSlots = 32;
 constexpr int kCombineRows = 8;
 constexpr unsigned kFull = 0xffffffffu;
@@ -69,14 +54,8 @@ struct Cols {
   const float* v[4];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Where a row's count and sums go.  LocalSink: this block's own slice
-// (rows of other blocks are skipped); RemoteSink: the owner's slice in
-// the cluster, through distributed shared memory.
-struct LocalSink {
+// This block's slice of the table; rows of other slices are skipped.
+struct Slice {
   unsigned* table;
   int S, num_slots;
   uint32_t magic, rank;
@@ -96,41 +75,14 @@ struct LocalSink {
   }
 };
 
-struct RemoteSink {
-  uint32_t base;  // this block's slice, a shared::cta address
-  int S, num_slots;
-  uint32_t magic;
-
-  __device__ __forceinline__ bool takes(int g) const {
-    return (unsigned)g < (unsigned)num_slots;
-  }
-  template <bool HC, int NV>
-  __device__ __forceinline__ void add(int g, unsigned count,
-                                      const float* v) const {
-    const uint32_t owner = __umulhi((uint32_t)g, magic);
-    const uint32_t local = (uint32_t)g - owner * (uint32_t)S;
-    uint32_t a;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-                 : "=r"(a) : "r"(base + 4u * local), "r"(owner));
-    if (HC)
-      asm volatile("red.shared::cluster.add.u32 [%0], %1;"
-                   :: "r"(a), "r"(count) : "memory");
-#pragma unroll
-    for (int c = 0; c < NV; ++c)
-      asm volatile("red.shared::cluster.add.f32 [%0], %1;"
-                   :: "r"(a + 4u * (uint32_t)((HC + c) * S)), "f"(v[c])
-                   : "memory");
-  }
-};
-
 // One row a lane, every lane of the warp calling (g outside [0, slots):
 // no row); val(c) reads the row's value in column c.  The warp keeps a
 // candidate hot slot: the lanes whose row hits it are summed with
 // shuffles and added once, so one slot taking most rows (a skewed key)
 // costs an add a warp, not a lane.  Otherwise each lane adds its row and
 // the candidate moves to the first lane's slot.
-template <bool HC, int NV, typename Sink, typename V>
-__device__ __forceinline__ void add_row(const Sink& sink, int g, V&& val,
+template <bool HC, int NV, typename V>
+__device__ __forceinline__ void add_row(const Slice& sink, int g, V&& val,
                                         int& hot) {
   const int lane = threadIdx.x & 31;
   const bool take = sink.takes(g);
@@ -157,186 +109,29 @@ __device__ __forceinline__ void add_row(const Sink& sink, int g, V&& val,
   sink.template add<HC, NV>(g, 1u, v);
 }
 
-// Slice `rank` of group `cid` is written: to the partials buffer, or into
-// the outputs with global atomics.
+// Rows in [0, head) and [head + 4 * nvec, n) go one a lane, the rest as
+// 16-byte units of four rows (all pointers then share their alignment).
+// Block b is slice b % slices of group b / slices; a group's blocks each
+// take units tid, tid + stride, ... of the group's threads.
 template <bool HC, int NV>
-__device__ __forceinline__ void flush_table(
-    const unsigned* table, int S, int num_slots, int rank, long long cid,
-    int atomic_flush, unsigned* __restrict__ partials,
-    int* __restrict__ counts, float* __restrict__ sums) {
+__global__ void __launch_bounds__(1024)
+group_hist_kernel(const int* __restrict__ gid, long long n, int head,
+                  long long nvec, Cols cols, int num_slots, int S,
+                  uint32_t magic, int slices,
+                  unsigned* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned s_table[];
   constexpr int words = HC + NV;
-  const int first = rank * S;
-  const int len = min(S, num_slots - first);
-  if (atomic_flush) {
-    for (int l = threadIdx.x; l < len; l += blockDim.x) {
-      if (HC && table[l] != 0u)
-        atomicAdd(counts + first + l, static_cast<int>(table[l]));
-#pragma unroll
-      for (int c = 0; c < NV; ++c) {
-        const float x = __uint_as_float(table[(HC + c) * S + l]);
-        if (x != 0.f || x != x)
-          atomicAdd(sums + (long long)c * num_slots + first + l, x);
-      }
-    }
-    return;
-  }
-  unsigned* p = partials + cid * words * (long long)num_slots + first;
-  for (int w = 0; w < words; ++w)
-    for (int l = threadIdx.x; l < len; l += blockDim.x)
-      p[(long long)w * num_slots + l] = table[w * S + l];
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t a, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(a), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t a, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(a), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t a, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One bulk copy global -> shared, its bytes counted on the mbarrier at
-// the same offset in every destination block.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t mbar,
-                                          uint16_t mask, bool multicast) {
-  if (multicast)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        ".multicast::cluster [%0], [%1], %2, [%3], %4;"
-        :: "r"(dst), "l"(src), "r"(bytes), "r"(mbar), "h"(mask)
-        : "memory");
-  else
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];"
-        :: "r"(dst), "l"(src), "r"(bytes), "r"(mbar) : "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The multicast design (see the head of the file).  Rows
-// [head, head + ntiles * T) come in tiles by TMA; the rest (the unaligned
-// head and the tail, or every row when the columns do not share their
-// alignment) are read by every block of a cluster from global memory.
-template <bool HC, int NV>
-__global__ void __launch_bounds__(1024, 1)
-group_hist_multicast_kernel(const int* __restrict__ gid, long long n,
-                            long long head, long long ntiles, Cols cols,
-                            int num_slots, int S, uint32_t magic, int T,
-                            int stages, int atomic_flush,
-                            unsigned* __restrict__ partials,
-                            int* __restrict__ counts,
-                            float* __restrict__ sums) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int words = HC + NV;
-  constexpr int row_bytes = 4 * (1 + NV);
-  cg::cluster_group cluster = cg::this_cluster();
-  const uint32_t rank = cluster.block_rank();
-  const uint32_t C = cluster.num_blocks();
-  const long long ncl = gridDim.x / C;
-  const long long cid = blockIdx.x / C;
   const int nthreads = blockDim.x;
-  unsigned* table = reinterpret_cast<unsigned*>(smem);
-  unsigned char* ring = smem + ((words * S * 4 + 127) / 128) * 128;
-  const int stage_bytes = T * row_bytes;
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes);
-  for (int i = threadIdx.x; i < words * S; i += nthreads) table[i] = 0u;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(smem_u32(mbar + s), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // Tables zero and barriers set in every block before any copy lands.
-  cluster.sync();
-
-  const LocalSink sink{table, S, num_slots, magic, rank};
-  const int share = T / static_cast<int>(C);
-  const uint16_t mask = static_cast<uint16_t>((1u << C) - 1u);
-  const long long iters = cid < ntiles ? (ntiles - 1 - cid) / ncl + 1 : 0;
-  // Thread 0 issues this block's share of the cluster's i-th tile.
-  auto issue = [&](long long i) {
-    if (i >= iters) return;
-    const int s = static_cast<int>(i % stages);
-    const uint32_t mb = smem_u32(mbar + s);
-    mbar_expect_tx(mb, stage_bytes);
-    const long long row0 = head + (cid + i * ncl) * T + rank * share;
-    const uint32_t dst = smem_u32(ring + s * stage_bytes) + rank * share * 4;
-    bulk_load(dst, gid + row0, share * 4, mb, mask, C > 1);
-#pragma unroll
-    for (int c = 0; c < NV; ++c)
-      bulk_load(dst + (c + 1) * T * 4, cols.v[c] + row0, share * 4, mb, mask,
-                C > 1);
-  };
-  if (threadIdx.x == 0)
-    for (int i = 0; i + 1 < stages; ++i) issue(i);
-  int hot = -1;
-  for (long long i = 0; i < iters; ++i) {
-    const int s = static_cast<int>(i % stages);
-    mbar_wait(smem_u32(mbar + s), static_cast<uint32_t>((i / stages) & 1));
-    // Every block is done with tile i - 1: its stage may be refilled.
-    if (i > 0) cluster_wait();
-    if (threadIdx.x == 0) issue(i + stages - 1);
-    const int* ids = reinterpret_cast<const int*>(ring + s * stage_bytes);
-    const float* vals = reinterpret_cast<const float*>(ids + T);
-    for (int r = threadIdx.x * 4; r < T; r += nthreads * 4) {
-      const int4 g = *reinterpret_cast<const int4*>(ids + r);
-      const int gs[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        add_row<HC, NV>(sink, gs[j],
-                        [&](int c) { return vals[c * T + r + j]; }, hot);
-    }
-    cluster_arrive();
-  }
-  if (iters > 0) cluster_wait();
-
-  // Rows outside the tiles, spread over the clusters, whole warps at a
-  // time.
-  const long long tail0 = head + ntiles * T;
-  const long long nscalar = head + (n - tail0);
   const int lane = threadIdx.x & 31;
-  for (long long i0 = cid * nthreads + threadIdx.x - lane; i0 < nscalar;
-       i0 += ncl * nthreads) {
-    const long long i = i0 + lane;
-    const long long r = i < head ? i : tail0 + (i - head);
-    add_row<HC, NV>(sink, i < nscalar ? __ldg(gid + r) : -1,
-                    [&](int c) { return __ldg(cols.v[c] + r); }, hot);
-  }
+  for (int i = threadIdx.x; i < words * S; i += nthreads) s_table[i] = 0u;
   __syncthreads();
-  flush_table<HC, NV>(table, S, num_slots, rank, cid, atomic_flush, partials,
-                      counts, sums);
-}
-
-// The local and remote designs (see the head of the file) stream the rows
-// from global memory: rows in [0, head) and [head + 4 * nvec, n) go one a
-// lane, the rest as 16-byte units of four rows (all pointers then share
-// their alignment).  Thread `tid` of `stride` takes units tid, tid +
-// stride, ...
-template <bool HC, int NV, typename Sink>
-__device__ __forceinline__ void stream_rows(const Sink& sink, const int* gid,
-                                            long long n, int head,
-                                            long long nvec, const Cols& cols,
-                                            long long tid, long long stride) {
-  const int lane = threadIdx.x & 31;
+  const uint32_t rank = blockIdx.x % slices;
+  const long long group = blockIdx.x / slices;
+  const Slice sink{s_table, S, num_slots, magic, rank};
+  const long long tid = group * nthreads + threadIdx.x;
+  const long long stride = (long long)(gridDim.x / slices) * nthreads;
   int hot = -1;
+
   const long long tail0 = head + 4 * nvec;
   const long long nscalar = head + (n - tail0);
   for (long long i0 = tid - lane; i0 < nscalar; i0 += stride) {
@@ -370,49 +165,15 @@ __device__ __forceinline__ void stream_rows(const Sink& sink, const int* gid,
       add_row<HC, NV>(sink, gq[j].w, [&](int c) { return vq[j][c].w; }, hot);
     }
   }
-}
+  __syncthreads();
 
-// Launched with clusters of C > 1 blocks: the remote design, block rank r
-// of a cluster owning slice r, every block streaming its own rows.  With
-// C = 1: the local design, block b owning slice b % R of its group of R
-// blocks (R = slices), the group's blocks each streaming all of the
-// group's rows.
-template <bool HC, int NV>
-__global__ void __launch_bounds__(1024)
-group_hist_stream_kernel(const int* __restrict__ gid, long long n, int head,
-                         long long nvec, Cols cols, int num_slots, int S,
-                         uint32_t magic, int slices, int atomic_flush,
-                         unsigned* __restrict__ partials,
-                         int* __restrict__ counts, float* __restrict__ sums) {
-  extern __shared__ __align__(16) unsigned s_table[];
-  cg::cluster_group cluster = cg::this_cluster();
-  constexpr int words = HC + NV;
-  const int nthreads = blockDim.x;
-  for (int i = threadIdx.x; i < words * S; i += nthreads) s_table[i] = 0u;
-  // Every slice is zero before any block adds into it.
-  cluster.sync();
-  const unsigned C = cluster.num_blocks();
-  int rank;
-  long long group;
-  if (C > 1) {
-    rank = static_cast<int>(cluster.block_rank());
-    group = blockIdx.x / C;
-    stream_rows<HC, NV>(RemoteSink{smem_u32(s_table), S, num_slots, magic},
-                        gid, n, head, nvec, cols,
-                        (long long)blockIdx.x * nthreads + threadIdx.x,
-                        (long long)gridDim.x * nthreads);
-  } else {
-    rank = static_cast<int>(blockIdx.x % slices);
-    group = blockIdx.x / slices;
-    stream_rows<HC, NV>(
-        LocalSink{s_table, S, num_slots, magic, static_cast<uint32_t>(rank)},
-        gid, n, head, nvec, cols, group * nthreads + threadIdx.x,
-        (long long)(gridDim.x / slices) * nthreads);
-  }
-  // No block leaves (or reads its slice) while others may still add.
-  cluster.sync();
-  flush_table<HC, NV>(s_table, S, num_slots, rank, group, atomic_flush,
-                      partials, counts, sums);
+  // The slice into partials[group, w, rank * S ...].
+  const int first = rank * S;
+  const int len = min(S, num_slots - first);
+  unsigned* p = partials + group * words * (long long)num_slots + first;
+  for (int w = 0; w < words; ++w)
+    for (int l = threadIdx.x; l < len; l += nthreads)
+      p[(long long)w * num_slots + l] = s_table[w * S + l];
 }
 
 // out[slot] = sum over groups of the partials: counts in i32, sums in f64
@@ -456,87 +217,40 @@ group_hist_combine_kernel(const unsigned* __restrict__ partials,
   }
 }
 
-void fill_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                 int grid, int threads, int cluster, int smem,
-                 cudaStream_t s) {
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(grid);
-  cfg->blockDim = dim3(threads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = s;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
-struct Args {
-  const int* gid;
-  long long n;
-  long long head;
-  long long body;  // units of 4 rows (stream) or tiles of T rows (multicast)
-  Cols cols;
-  int num_slots, S;
-  uint32_t magic;
-  int T, stages, threads, slices, design, atomic_flush;
-  unsigned* partials;
-  int* counts;
-  float* sums;
-  int cluster, groups, smem;
-  cudaStream_t stream;
-  int* max_clusters;  // set: only query the occupancy into it
-};
-
-template <typename F, typename... P>
-cudaError_t launch(F* fn, int threads, const Args& a, P... params) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
-  if (e == cudaSuccess && a.cluster > 8)
-    e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  if (a.max_clusters != nullptr) {
-    fill_config(&cfg, attr, a.cluster, threads, a.cluster, a.smem, nullptr);
-    return cudaOccupancyMaxActiveClusters(a.max_clusters, (const void*)fn,
-                                          &cfg);
-  }
-  fill_config(&cfg, attr, a.groups * a.slices, threads, a.cluster, a.smem,
-              a.stream);
-  return cudaLaunchKernelEx(&cfg, fn, params...);
-}
-
 template <bool HC, int NV>
-cudaError_t run(const Args& a) {
-  if (a.design == 0)
-    return launch(group_hist_multicast_kernel<HC, NV>, a.threads, a, a.gid,
-                  a.n, a.head, a.body, a.cols, a.num_slots, a.S, a.magic,
-                  a.T, a.stages, a.atomic_flush, a.partials, a.counts,
-                  a.sums);
-  return launch(group_hist_stream_kernel<HC, NV>, a.threads, a, a.gid, a.n,
-                static_cast<int>(a.head), a.body, a.cols, a.num_slots, a.S,
-                a.magic, a.slices, a.atomic_flush, a.partials, a.counts,
-                a.sums);
+cudaError_t run(const int* gid, long long n, int head, long long nvec,
+                const Cols& cols, int num_slots, int S, uint32_t magic,
+                int slices, int groups, int threads, int smem,
+                unsigned* partials, cudaStream_t s, int* max_blocks) {
+  auto* fn = group_hist_kernel<HC, NV>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (max_blocks != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(max_blocks, fn,
+                                                         threads, smem);
+  fn<<<groups * slices, threads, smem, s>>>(gid, n, head, nvec, cols,
+                                            num_slots, S, magic, slices,
+                                            partials);
+  return cudaGetLastError();
 }
 
-cudaError_t dispatch(bool hc, int nv, const Args& a) {
+template <typename... A>
+cudaError_t dispatch(bool hc, int nv, A... a) {
   if (hc) {
     switch (nv) {
-      case 0: return run<true, 0>(a);
-      case 1: return run<true, 1>(a);
-      case 2: return run<true, 2>(a);
-      case 3: return run<true, 3>(a);
-      case 4: return run<true, 4>(a);
+      case 0: return run<true, 0>(a...);
+      case 1: return run<true, 1>(a...);
+      case 2: return run<true, 2>(a...);
+      case 3: return run<true, 3>(a...);
+      case 4: return run<true, 4>(a...);
     }
   } else {
     switch (nv) {
-      case 1: return run<false, 1>(a);
-      case 2: return run<false, 2>(a);
-      case 3: return run<false, 3>(a);
-      case 4: return run<false, 4>(a);
+      case 1: return run<false, 1>(a...);
+      case 2: return run<false, 2>(a...);
+      case 3: return run<false, 3>(a...);
+      case 4: return run<false, 4>(a...);
     }
   }
   return cudaErrorInvalidValue;
@@ -544,93 +258,65 @@ cudaError_t dispatch(bool hc, int nv, const Args& a) {
 
 }  // namespace
 
-// How many clusters of `cluster` blocks of `threads` threads with `smem`
-// bytes of dynamic shared memory each can be resident at once (0: none
-// fits); design 0 is the multicast kernel, 1 the stream kernel (the local
-// and remote designs).
-extern "C" int warpdb_group_hist_clusters(int has_count, int nv, int cluster,
-                                          int smem, int design, int threads,
-                                          void* out) {
+// How many blocks of `threads` threads with `smem` bytes of dynamic
+// shared memory each an SM holds at once.
+extern "C" int warpdb_group_hist_blocks(int has_count, int nv, int threads,
+                                        int smem, void* out) {
   int* o = static_cast<int*>(out);
   *o = 0;
-  Args a{};
-  a.cluster = cluster;
-  a.smem = smem;
-  a.design = design;
-  a.threads = threads;
-  a.max_clusters = o;
-  cudaError_t e = dispatch(has_count != 0, nv, a);
+  const cudaError_t e = dispatch(has_count != 0, nv, nullptr, 0LL, 0, 0LL,
+                                 Cols{}, 0, 0, 0u, 1, 0, threads, smem,
+                                 nullptr, cudaStream_t{}, o);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // Counts (if counts != null) and sums of nv <= 4 value columns by gid.
-// Plan (ops/group_kernel.py:cluster_plan): the table in `slices` slices
-// of S slots, one a block, slot g in slice umulhi(g, magic) (magic =
-// ceil(2^32 / S), 0 for one slice); `groups` groups of `slices` blocks
-// (clusters of `cluster` = slices blocks, or plain blocks with cluster =
-// 1); `threads` threads and smem bytes a block; for the multicast design
-// a ring of `stages` tiles of T rows.  partials: groups * (has_count +
-// nv) * num_slots words (unused with atomic_flush, where counts and sums
-// must hold zeros).
+// Plan (ops/group_kernel.py:slice_plan): the table in `slices` slices of
+// S slots, one a block, slot g in slice umulhi(g, magic) (magic =
+// ceil(2^32 / S), 0 for one slice); `groups` groups of `slices` blocks of
+// `threads` threads and smem bytes; partials: groups * (has_count + nv) *
+// num_slots words of scratch.
 extern "C" int warpdb_group_hist(const void* gid, long long n, int num_slots,
                                  const void* v0, const void* v1,
                                  const void* v2, const void* v3, int nv,
                                  void* counts, void* sums, void* partials,
-                                 int cluster, int slices, int groups, int S,
-                                 unsigned magic, int T, int stages,
-                                 int threads, int smem, int design,
-                                 int atomic_flush, void* stream) {
-  if (nv < 0 || nv > 4 || cluster < 1 || slices < 1 || groups < 1 ||
-      S < 1 || threads % 32 != 0 || threads < 32 || threads > 1024 ||
-      (cluster > 1 && cluster != slices) || design < 0 || design > 1 ||
-      (design == 0 &&
-       (T % 128 != 0 || T % (4 * cluster) != 0 || stages < 2 ||
-        stages > kMaxStages)))
+                                 int slices, int groups, int S,
+                                 unsigned magic, int threads, int smem,
+                                 void* stream) {
+  if (nv < 0 || nv > 4 || slices < 1 || groups < 1 || S < 1 ||
+      threads % 32 != 0 || threads < 32 || threads > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.gid = static_cast<const int*>(gid);
-  a.n = n;
-  a.cols = Cols{{static_cast<const float*>(v0), static_cast<const float*>(v1),
-                 static_cast<const float*>(v2),
-                 static_cast<const float*>(v3)}};
-  a.num_slots = num_slots;
-  a.S = S;
-  a.magic = magic;
-  a.T = T;
-  a.stages = stages;
-  a.threads = threads;
-  a.slices = slices;
-  a.design = design;
-  a.atomic_flush = atomic_flush;
-  a.partials = static_cast<unsigned*>(partials);
-  a.counts = static_cast<int*>(counts);
-  a.sums = static_cast<float*>(sums);
-  a.cluster = cluster;
-  a.groups = groups;
-  a.smem = smem;
-  a.stream = static_cast<cudaStream_t>(stream);
+  const Cols cols{{static_cast<const float*>(v0),
+                   static_cast<const float*>(v1),
+                   static_cast<const float*>(v2),
+                   static_cast<const float*>(v3)}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hc = counts != nullptr;
   const int words = hc + nv;
-  // 16-byte units (and bulk copies) need every pointer at the same offset
-  // from 16 bytes; otherwise every row goes one at a time.
+  // 16-byte units need every pointer at the same offset from 16 bytes;
+  // otherwise every row goes one at a time.
   const uintptr_t g = reinterpret_cast<uintptr_t>(gid);
   bool same = (g & 3) == 0;
   for (int c = 0; c < nv; ++c)
     same = same &&
-           ((reinterpret_cast<uintptr_t>(a.cols.v[c]) ^ g) & 15) == 0;
-  a.head = n;
+           ((reinterpret_cast<uintptr_t>(cols.v[c]) ^ g) & 15) == 0;
+  long long head = n, nvec = 0;
   if (same) {
-    a.head = (long long)(((16 - (g & 15)) & 15) / 4);
-    if (a.head > n) a.head = n;
-    a.body = (n - a.head) / (design == 0 ? T : 4);
+    head = (long long)(((16 - (g & 15)) & 15) / 4);
+    if (head > n) head = n;
+    nvec = (n - head) / 4;
   }
-  cudaError_t e = dispatch(hc != 0, nv, a);
+  unsigned* part = static_cast<unsigned*>(partials);
+  cudaError_t e = dispatch(hc != 0, nv, static_cast<const int*>(gid), n,
+                           static_cast<int>(head), nvec, cols, num_slots, S,
+                           static_cast<uint32_t>(magic), slices, groups,
+                           threads, smem, part, s,
+                           static_cast<int*>(nullptr));
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || atomic_flush) return static_cast<int>(e);
   const int blocks = (num_slots + kCombineSlots - 1) / kCombineSlots;
   group_hist_combine_kernel<<<blocks, dim3(kCombineSlots, kCombineRows), 0,
-                              a.stream>>>(
-      a.partials, groups, words, hc, num_slots, a.counts, a.sums);
+                              s>>>(part, groups, words, hc, num_slots,
+                                   static_cast<int*>(counts),
+                                   static_cast<float*>(sums));
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,10 @@
 // a second launch (torch.topk over every block's K candidates).
 //
 // Hopper design, one launch:
-//   1. Stream: one block of 1024 threads an SM, each lane with U = 8 (or
-//      4) 16-byte loads in flight (128 KiB an SM); the unaligned head and
-//      the ragged tail (at most 6 values) go one a lane.
+//   1. Stream: one block of 1024 threads an SM, each lane with eight
+//      16-byte loads in flight (128 KiB an SM; four measured slower); the
+//      unaligned head and the ragged tail (at most 6 values) go one a
+//      lane.
 //   2. Select: each warp keeps its top-L (L = max(K, 32)) sorted in
 //      shared memory behind a threshold: the largest K-th value of any
 //      warp's list in the block (shared through an atomicMax).  A value
@@ -51,6 +52,7 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+constexpr int U = 8;  // 16-byte loads a lane in flight (8 beat 4)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -168,7 +170,7 @@ struct WarpTopK {
   }
 };
 
-template <int K, int U>
+template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
 topk_kernel(const float* __restrict__ x, long long n, int head,
             long long nvec, float* __restrict__ out_blocks,
@@ -255,36 +257,11 @@ topk_kernel(const float* __restrict__ x, long long n, int head,
   if (threadIdx.x == 0) *ticket = 0u;
 }
 
-template <int U>
-cudaError_t launch(int k, int grid, cudaStream_t s, const float* x,
-                   long long n, int head, long long nvec, float* ob,
-                   float* of, unsigned* t) {
-  switch (k) {
-    case 16:
-      topk_kernel<16, U><<<grid, kThreads, 0, s>>>(x, n, head, nvec, ob, of, t);
-      break;
-    case 32:
-      topk_kernel<32, U><<<grid, kThreads, 0, s>>>(x, n, head, nvec, ob, of, t);
-      break;
-    case 64:
-      topk_kernel<64, U><<<grid, kThreads, 0, s>>>(x, n, head, nvec, ob, of, t);
-      break;
-    case 128:
-      topk_kernel<128, U><<<grid, kThreads, 0, s>>>(x, n, head, nvec, ob, of,
-                                                    t);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// unroll: 16-byte loads a lane in flight, 4 or 8.
 extern "C" int warpdb_topk(const void* x, long long n, int k,
                            void* out_blocks, void* out_final, void* ticket,
-                           int grid, int unroll, void* stream) {
+                           int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   // 16-byte units from the first aligned value on.
@@ -297,8 +274,21 @@ extern "C" int warpdb_topk(const void* x, long long n, int k,
   float* of = static_cast<float*>(out_final);
   unsigned* t = static_cast<unsigned*>(ticket);
   const int h = static_cast<int>(head);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (unroll == 4) e = launch<4>(k, grid, s, xf, n, h, nvec, ob, of, t);
-  if (unroll == 8) e = launch<8>(k, grid, s, xf, n, h, nvec, ob, of, t);
-  return static_cast<int>(e);
+  switch (k) {
+    case 16:
+      topk_kernel<16><<<grid, kThreads, 0, s>>>(xf, n, h, nvec, ob, of, t);
+      break;
+    case 32:
+      topk_kernel<32><<<grid, kThreads, 0, s>>>(xf, n, h, nvec, ob, of, t);
+      break;
+    case 64:
+      topk_kernel<64><<<grid, kThreads, 0, s>>>(xf, n, h, nvec, ob, of, t);
+      break;
+    case 128:
+      topk_kernel<128><<<grid, kThreads, 0, s>>>(xf, n, h, nvec, ob, of, t);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,19 +5,17 @@ MXU one-hot Pallas kernel).  The CUDA kernel is ``csrc/group_hist.cu``:
 the slot table lives in shared memory, cut into slices of at most 200 KB,
 one a block; blocks in groups of one block a slice each read all of the
 group's rows and add the ones they own with shared-memory atomics; each
-group flushes a partial table that a second pass adds up.  The cluster
-designs (TMA multicast, remote DSMEM reductions) are measured variants.
-See the source for the designs and their numbers.
+group flushes a partial table that a second pass adds up.  See the source
+for the design and its measured alternatives.
 
 Contract: ``gid`` is i32[n]; ``values`` is a sequence of f32[n] (may be
-empty); ``0 < num_slots <= MAX_SLOTS`` (2^16, what a cluster of 8 blocks
-holds at four value columns and a count), any n.  Returns ``(counts
-i32[num_slots], tuple of f32[num_slots])``.  Ids outside ``[0,
-num_slots)`` contribute nothing; callers pass invalid rows as
-``num_slots``.  Counts are exact at any row count.  Sums are f32, added
-in a run-dependent order on the card (compare with a tolerance).  Unlike
-the TPU kernel, values need not be finite: ±inf and NaN reach only their
-own slot.
+empty); ``0 < num_slots <= MAX_SLOTS`` (2^16, the midrange tier's cap),
+any n.  Returns ``(counts i32[num_slots], tuple of f32[num_slots])``.
+Ids outside ``[0, num_slots)`` contribute nothing; callers pass invalid
+rows as ``num_slots``.  Counts are exact at any row count.  Sums are f32,
+added in a run-dependent order on the card (compare with a tolerance).
+Unlike the TPU kernel, values need not be finite: ±inf and NaN reach only
+their own slot.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 :func:`group_counts_sums_plain`.  Both refuse a slot count outside the
@@ -33,49 +31,23 @@ import torch
 
 from ..errors import ExecutionError
 
-__all__ = ["group_counts_sums", "group_counts_sums_plain", "cluster_plan",
-           "Plan", "MAX_SLOTS", "DESIGNS"]
+__all__ = ["group_counts_sums", "group_counts_sums_plain", "slice_plan",
+           "Plan", "MAX_SLOTS"]
 
 _COLS_PER_LAUNCH = 4
-# Shared memory a block may take on Hopper (227 KB) and the cluster sizes
-# (16 needs the non-portable opt-in).  MAX_SLOTS is what a cluster of 8
-# holds at five words (a count and four sums) a slot.
-SMEM_BYTES = 232_448
-CLUSTER_SIZES = (1, 2, 4, 8, 16)
 MAX_SLOTS = 1 << 16
-# The designs (csrc/group_hist.cu): the table is cut into `slices`
-# slices, one a block.  "local": plain blocks in groups of `slices`, each
-# block reading all of its group's rows and adding the ones it owns;
-# "multicast": a cluster of `slices` blocks that the rows reach by TMA
-# multicast, each adding the rows it owns; "remote": a cluster of
-# `slices` blocks, each reading its own rows and adding them into the
-# owner's slice through distributed shared memory.
-DESIGNS = ("local", "multicast", "remote")
-# The local design's default: the fewest slices of at most this many
-# bytes, and as many blocks an SM (up to four, 1024 threads an SM in all)
-# as fit beside them.
-_LOCAL_SLICE = 200 * 1024
+# A slice of the table takes at most this much of a block's shared memory
+# (Hopper gives a block 227 KB); up to four blocks share an SM, 1024
+# threads an SM in all.
+SLICE_BYTES = 200 * 1024
 _SM_BYTES = 233_472  # shared memory of an SM, less 1 KB a block reserved
-# The remote design forced without a size takes the smallest cluster
-# whose slices fit this many bytes.
-_SLICE_TARGET = 64 * 1024
-# The multicast ring: `stages` tiles of T rows, T a multiple of 1024 up
-# to _MAX_TILE; `threads` a block (one block an SM).
-_STAGES = 3
-_MC_THREADS = 1024
-_MAX_TILE = 16384
-# Resident groups are capped at this many blocks an SM.
 _BLOCKS_PER_SM = 4
 
 
 class Plan(NamedTuple):
-    design: str
     slices: int   # blocks the table is cut over
-    cluster: int  # blocks a launch cluster: slices, or 1 (local)
     S: int        # slots a slice
-    magic: int    # ceil(2^32 / S), 0 for one slice
-    T: int        # rows a tile (multicast), else 0
-    stages: int   # tiles in the ring (multicast), else 0
+    magic: int    # ceil(2^32 / S): slot g lies in slice umulhi(g, magic)
     threads: int  # threads a block
     smem: int     # dynamic shared memory a block, bytes
 
@@ -83,85 +55,30 @@ class Plan(NamedTuple):
 def _check_slots(num_slots: int) -> None:
     if not 0 < num_slots <= MAX_SLOTS:
         raise ExecutionError(
-            f"group kernel holds 1..{MAX_SLOTS} slots (at a count and 4 "
-            f"sums a slot, slices of {SMEM_BYTES} bytes of shared memory "
-            f"in 8 blocks), got {num_slots}"
+            f"group kernel holds 1..{MAX_SLOTS} slots (the midrange tier's "
+            f"cap), got {num_slots}"
         )
 
 
-def _slice(num_slots: int, slices: int) -> int:
-    S = -(-num_slots // slices)
-    return max(S, 2) if slices > 1 else S  # ceil(2^32 / S) fits 32 bits
-
-
-def _fit(num_slots, words, row, slices, design, stages):
-    """(T, smem) of one block, smem None where it does not fit."""
-    table = _slice(num_slots, slices) * words * 4
-    if design != "multicast":
-        return 0, table if table <= SMEM_BYTES else None
-    base = -(-table // 128) * 128 + 8 * stages
-    T = min(_MAX_TILE, (SMEM_BYTES - base) // (stages * row) // 1024 * 1024)
-    if T < 1024:
-        return 0, None
-    return T, base + stages * T * row
-
-
-def cluster_plan(num_slots: int, has_count: int, nv: int,
-                 slices: int | None = None, design: str = "local",
-                 stages: int | None = None,
-                 threads: int | None = None) -> Plan:
+def slice_plan(num_slots: int, has_count: int, nv: int) -> Plan:
     """The launch plan of one batch: the table of ``has_count + nv``
-    4-byte words a slot cut into ``slices`` slices of ``S =
-    ceil(num_slots / slices)`` slots, one a block; slot ``g`` lies in
-    slice ``umulhi(g, magic)`` (``g // S``) at local index ``g - owner *
-    S``.  By default the local design with the fewest slices of at most
-    200 KB; the keywords force a measured variant."""
+    4-byte words a slot cut into the fewest slices of at most
+    SLICE_BYTES, ``S = ceil(num_slots / slices)`` slots each (at least 2
+    where there are several, so that the magic fits 32 bits); slot ``g``
+    lies in slice ``umulhi(g, magic) == g // S`` at local index
+    ``g - slice * S``; as many blocks an SM (up to four) as fit."""
     _check_slots(num_slots)
-    words, row = has_count + nv, 4 * (1 + nv)
-    if design not in DESIGNS:
-        raise ExecutionError(f"group kernel: no design {design!r}")
-    if design == "multicast":
-        stages = _STAGES if stages is None else stages
-        threads = _MC_THREADS if threads is None else threads
-        if not 2 <= stages <= 8:
-            raise ExecutionError(f"group kernel: no ring of {stages} stages")
-    else:
-        stages = 0
-
-    def fits(c):
-        return _fit(num_slots, words, row, c, design, stages)[1] is not None
-
-    if slices is None:
-        if design == "local":
-            slices = next(r for r in range(1, 65)
-                          if _slice(num_slots, r) * words * 4 <= _LOCAL_SLICE)
-        else:
-            portable = [c for c in CLUSTER_SIZES[:-1] if fits(c)]
-            slices = portable[0]
-            if design == "remote":
-                slices = next((c for c in portable
-                               if _slice(num_slots, c) * words * 4
-                               <= _SLICE_TARGET), portable[-1])
-    if design != "local" and slices not in CLUSTER_SIZES:
-        raise ExecutionError(f"group kernel: no cluster of {slices} blocks")
-    if not 1 <= slices <= MAX_SLOTS:
-        raise ExecutionError(f"group kernel: no cut into {slices} slices")
-    T, smem = _fit(num_slots, words, row, slices, design, stages)
-    if smem is None:
-        raise ExecutionError(
-            f"group kernel: {num_slots} slots of {words} words do not fit "
-            f"{slices} blocks of {SMEM_BYTES} bytes"
-        )
-    if threads is None:
-        # Up to four blocks an SM, 1024 threads an SM in all.
-        per_sm = max(1, min(4, _SM_BYTES // (smem + 1024)))
-        threads = 1024 // per_sm // 32 * 32
-    if threads % 32 or not 0 < threads <= 1024:
-        raise ExecutionError(f"group kernel: no block of {threads} threads")
-    S = _slice(num_slots, slices)
+    words = has_count + nv
+    slices = 1
+    while -(-num_slots // slices) * words * 4 > SLICE_BYTES:
+        slices += 1
+    S = -(-num_slots // slices)
+    if slices > 1:
+        S = max(S, 2)
+    smem = S * words * 4
+    per_sm = max(1, min(_BLOCKS_PER_SM, _SM_BYTES // (smem + 1024)))
     magic = 0 if slices == 1 else -(-(1 << 32) // S)
-    cluster = 1 if design == "local" else slices
-    return Plan(design, slices, cluster, S, magic, T, stages, threads, smem)
+    return Plan(slices, S, magic, 1024 // per_sm // 32 * 32, smem)
 
 
 def group_counts_sums_plain(gid: torch.Tensor, values, num_slots: int):
@@ -180,37 +97,30 @@ def group_counts_sums_plain(gid: torch.Tensor, values, num_slots: int):
     return counts.to(torch.int32), sums
 
 
-_clusters_cache: dict = {}
+_blocks_cache: dict = {}
 _sms: dict = {}
 
 
-def _resident(fn, device, hc: int, nv: int, plan: Plan) -> int:
-    """Launch clusters (local design: blocks) resident at once."""
+def _blocks_per_sm(fn, device, hc: int, nv: int, plan: Plan) -> int:
     key = (device.index, hc, nv, plan)
-    got = _clusters_cache.get(key)
+    got = _blocks_cache.get(key)
     if got is None:
         import ctypes
 
         out = ctypes.c_int(0)
-        rc = fn(hc, nv, plan.cluster, plan.smem,
-                int(plan.design != "multicast"), plan.threads,
-                ctypes.addressof(out))
+        rc = fn(hc, nv, plan.threads, plan.smem, ctypes.addressof(out))
         if rc != 0 or out.value < 1:
             raise ExecutionError(
-                f"group kernel: no cluster of {plan.cluster} blocks with "
-                f"{plan.smem} bytes of shared memory fits the card (CUDA "
-                f"error {rc})"
+                f"group kernel: no block of {plan.threads} threads and "
+                f"{plan.smem} bytes of shared memory fits an SM (CUDA error "
+                f"{rc})"
             )
-        got = _clusters_cache[key] = out.value
+        got = _blocks_cache[key] = out.value
     return got
 
 
-def group_counts_sums(gid: torch.Tensor, values, num_slots: int, *,
-                      atomic_flush: bool = False, **variant):
-    """Counts and per-slot sums of ``values`` by ``gid`` (module doc).
-    ``atomic_flush`` (the flush by global atomics) and ``variant`` (the
-    keywords of :func:`cluster_plan`) force the variants that
-    ``chip_smoke.py`` measures."""
+def group_counts_sums(gid: torch.Tensor, values, num_slots: int):
+    """Counts and per-slot sums of ``values`` by ``gid`` (module doc)."""
     values = tuple(values)
     if gid.device.type == "cpu":
         return group_counts_sums_plain(gid, values, num_slots)
@@ -233,9 +143,9 @@ def group_counts_sums(gid: torch.Tensor, values, num_slots: int, *,
     gid = gid.contiguous()
     values = tuple(v.contiguous() for v in values)
     dev = gid.device
-    alloc = torch.zeros if atomic_flush else torch.empty
-    counts = alloc(num_slots, dtype=torch.int32, device=dev)
-    sums = alloc((len(values), num_slots), dtype=torch.float32, device=dev)
+    counts = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    sums = torch.empty((len(values), num_slots), dtype=torch.float32,
+                       device=dev)
     sms = _sms.get(dev.index)
     if sms is None:
         sms = _sms[dev.index] = torch.cuda.get_device_properties(
@@ -249,28 +159,23 @@ def group_counts_sums(gid: torch.Tensor, values, num_slots: int, *,
     ]
     for b, cols in enumerate(batches):
         hc = int(b == 0)
-        plan = cluster_plan(num_slots, hc, len(cols), **variant)
-        # Persistent groups of `slices` blocks, no more than the rows keep
-        # busy.
-        resident = _resident(lib.warpdb_group_hist_clusters, dev, hc,
-                             len(cols), plan) * plan.cluster // plan.slices
-        rows_per_group = plan.T or plan.threads * 8 * plan.cluster
-        groups = max(1, min(resident, sms * _BLOCKS_PER_SM // plan.slices,
-                            -(-n // rows_per_group)))
-        partials = None
-        if not atomic_flush:
-            partials = torch.empty(groups * (hc + len(cols)) * num_slots,
-                                   dtype=torch.int32, device=dev)
+        plan = slice_plan(num_slots, hc, len(cols))
+        # Persistent groups of `slices` blocks, each block of a group with
+        # at least eight rows a thread.
+        resident = _blocks_per_sm(lib.warpdb_group_hist_blocks, dev, hc,
+                                  len(cols), plan) * sms
+        groups = max(1, min(resident // plan.slices,
+                            -(-n // (plan.threads * 8))))
+        partials = torch.empty(groups * (hc + len(cols)) * num_slots,
+                               dtype=torch.int32, device=dev)
         ptrs = [values[c].data_ptr() for c in cols]
         ptrs += [None] * (_COLS_PER_LAUNCH - len(ptrs))
         rc = lib.warpdb_group_hist(
             gid.data_ptr(), n, num_slots, *ptrs, len(cols),
             counts.data_ptr() if hc else None,
             sums[cols[0]].data_ptr() if cols else None,
-            None if partials is None else partials.data_ptr(),
-            plan.cluster, plan.slices, groups, plan.S, plan.magic, plan.T,
-            plan.stages, plan.threads, plan.smem,
-            int(plan.design != "multicast"), int(atomic_flush), stream,
+            partials.data_ptr(), plan.slices, groups, plan.S, plan.magic,
+            plan.threads, plan.smem, stream,
         )
         if rc != 0:
             raise ExecutionError(

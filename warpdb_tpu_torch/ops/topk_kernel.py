@@ -31,7 +31,7 @@ __all__ = ["topk_candidates", "topk_candidates_plain", "kernel_k", "MAX_K",
 
 MAX_K = 128
 # One block of THREADS an SM; each lane keeps UNROLL 16-byte loads in
-# flight (8 measured faster than 4, PERF.md).
+# flight (csrc/topk.cu's U).
 THREADS = 1024
 UNROLL = 8
 
@@ -47,10 +47,10 @@ def kernel_k(k: int) -> int:
     return kk
 
 
-def grid_size(n: int, sms: int, unroll: int = UNROLL) -> int:
+def grid_size(n: int, sms: int) -> int:
     """Blocks of one launch: one an SM, fewer where the input gives each
-    lane fewer than ``unroll`` 16-byte units."""
-    return max(1, min(sms, -(-n // (THREADS * unroll * 4))))
+    lane fewer than UNROLL 16-byte units."""
+    return max(1, min(sms, -(-n // (THREADS * UNROLL * 4))))
 
 
 def topk_candidates_plain(u: torch.Tensor, k: int) -> torch.Tensor:
@@ -73,11 +73,8 @@ _scratch: dict = {}
 _sms: dict = {}
 
 
-def topk_candidates(u: torch.Tensor, k: int, *,
-                    unroll: int = UNROLL) -> torch.Tensor:
-    """(1, kernel_k(k)) sorted top row of ``u`` (see module doc).
-    ``unroll`` (4 or 8 16-byte loads a lane in flight) forces a variant
-    that ``chip_smoke.py`` measures."""
+def topk_candidates(u: torch.Tensor, k: int) -> torch.Tensor:
+    """(1, kernel_k(k)) sorted top row of ``u`` (see module doc)."""
     if u.device.type == "cpu":
         return topk_candidates_plain(u, k)
     if u.device.type != "cuda":
@@ -103,15 +100,12 @@ def topk_candidates(u: torch.Tensor, k: int, *,
         # The ticket, then room for every block's list at the widest k.
         scratch = _scratch[(dev.index, stream)] = torch.zeros(
             1 + sms * MAX_K, dtype=torch.int32, device=dev)
-    if unroll not in (4, 8):
-        raise ExecutionError(f"top-k kernel: no unroll of {unroll}")
-    grid = grid_size(n, sms, unroll)
+    grid = grid_size(n, sms)
     ticket, blocks = scratch[:1], scratch[1:].view(torch.float32)
     out = torch.empty((1, kk), dtype=torch.float32, device=dev)
     lib = _build.load("topk")
     rc = lib.warpdb_topk(u.data_ptr(), n, kk, blocks.data_ptr(),
-                         out.data_ptr(), ticket.data_ptr(), grid, unroll,
-                         stream)
+                         out.data_ptr(), ticket.data_ptr(), grid, stream)
     if rc != 0:
         raise ExecutionError(f"top-k kernel launch failed: CUDA error {rc}")
     topk_candidates.launches += 1
