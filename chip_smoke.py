@@ -19,9 +19,10 @@ Phases, each raising on failure:
    and K4 also at their edge shapes).  Then each timed at the main path's
    shapes beside its plain version, the one PyTorch call computing the
    same function where there is one, and its bound (bytes over the card's
-   memory rate), K1 and K2 also by ``torch.profiler`` device time and K1
-   also without the finish; and a table of K1 and K2 at other inputs
-   (each k, ascending and duplicate values, skewed ids, nv = 4).
+   memory rate), K1 and K2 also by ``torch.profiler`` device time (not
+   with ``--profile``) and K1 also without the finish; and a table of K1
+   and K2 at other inputs (each k, ascending and duplicate values, skewed
+   ids, nv = 4).
    ``--kernels`` stops here, after printing each kernel instance's ptxas
    usage;
 4. slice: ``WarpDB(..., device="cuda")`` over bench.py's table (2^25
@@ -372,7 +373,8 @@ def _check_group(group, gid, gd, vals, vd, slots, what, err, ref,
     (``ref[c]`` memoises column c's float64 bincount).  Where one slot
     takes millions of rows the plain version's single f32 chain drifts
     from float64 by more than SUM_RTOL; there (``hold_plain`` False) the
-    kernel is held to float64 alone and both drifts are reported."""
+    kernel is held to float64 alone, both drifts are reported, and
+    ``err`` (the distance from the plain version) is left as it was."""
     c, s = group.group_counts_sums(gd, vd, slots)
     cp, sp = group.group_counts_sums_plain(gd, vd, slots)
     torch.cuda.synchronize()
@@ -383,24 +385,27 @@ def _check_group(group, gid, gd, vals, vd, slots, what, err, ref,
     for i, (a, b) in enumerate(zip(s, sp)):
         if hold_plain:
             torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=1e-2)
+            err["group_hist"] = max(err["group_hist"],
+                                    float((a - b).abs().max()))
         if i not in ref:
             ref[i] = np.bincount(gid[ok], weights=vals[i][ok].astype(
                 np.float64), minlength=slots)
         got = a.cpu().numpy()
         np.testing.assert_allclose(got, ref[i], rtol=SUM_RTOL, atol=1e-2)
-        err["group_hist"] = max(err["group_hist"], float((a - b).abs().max()))
-        big = np.abs(ref[i]) > 1.0
-        rel = lambda x: float(np.max(np.abs(x[big] - ref[i][big])
-                                     / np.abs(ref[i][big])))
-        drift = (f"; relative error against float64: kernel "
-                 f"{rel(got)!r}, plain {rel(b.cpu().numpy())!r}")
+        if not hold_plain:
+            big = np.abs(ref[i]) > 1.0
+            rel = [float(np.max(np.abs(x[big] - ref[i][big])
+                                / np.abs(ref[i][big])))
+                   for x in (got, b.cpu().numpy())]
+            drift = (f"; relative error against float64: kernel "
+                     f"{rel[0]!r}, plain {rel[1]!r}")
     return drift
 
 
-def phase_kernels(topk, group) -> tuple:
+def phase_kernels(topk, group, device_times: bool) -> tuple:
     """K1 and K2 against their plain versions on the card (the slice's
-    shapes and the edge shapes), each timed at the slice's shapes, and a
-    table of their design variants."""
+    shapes and the edge shapes), each timed at the slice's shapes, and
+    timed at other inputs; with ``device_times`` also by the profiler."""
     from warpdb_tpu_torch.ops.sort import top_k_values
 
     g = np.random.default_rng(7)
@@ -478,18 +483,22 @@ def phase_kernels(topk, group) -> tuple:
         lambda: group.group_counts_sums_plain(gid, [u], KEY_SLOTS),
         None, ROWS * 8 + KEY_SLOTS * 8, f"n={ROWS} slots={KEY_SLOTS} nv=1")
     ms["topk"]["alone_ms"] = cuda_ms(lambda: topk.topk_candidates(u, 16))
-    ms["topk"]["profiler_ms"] = device_ms(
-        lambda: top_k_values(u, None, 16, False), K1_NAMES)
-    ms["group_hist"]["profiler_ms"] = device_ms(
-        lambda: group.group_counts_sums(gid, [u], KEY_SLOTS), K2_NAMES)
-    variants = _variants(topk, group, top_k_values, u, pool_d, g)
-    return err, ms, variants
+    if device_times:
+        ms["topk"]["profiler_ms"] = device_ms(
+            lambda: top_k_values(u, None, 16, False), K1_NAMES)
+        ms["group_hist"]["profiler_ms"] = device_ms(
+            lambda: group.group_counts_sums(gid, [u], KEY_SLOTS), K2_NAMES)
+    others = _other_inputs(topk, group, top_k_values, u, pool_d, g,
+                           device_times)
+    return err, ms, others
 
 
-def _variants(topk, group, top_k_values, u, pool_d, g) -> list:
+def _other_inputs(topk, group, top_k_values, u, pool_d, g,
+                  device_times: bool) -> list:
     """K1 and K2 at other inputs than the slice's (2^25 rows): each k,
     ascending and duplicate values, skewed ids, four value columns.
-    CUDA-event and profiler ms per call and the bound of the same work."""
+    CUDA-event and profiler ms per call (None without ``device_times``)
+    and the bound of the same work."""
     asc = torch.sort(u).values
     dup = torch.from_numpy(
         g.choice(np.float32([1.0, 2.0, 3.0, 99.5]), ROWS)).cuda()
@@ -522,7 +531,9 @@ def _variants(topk, group, top_k_values, u, pool_d, g) -> list:
                      K2_NAMES, ROWS * 20 + slots * 20))
     out = []
     for what, fn, keys, nbytes in rows:
-        out.append((what, cuda_ms(fn), device_ms(fn, keys), bound_ms(nbytes)))
+        out.append((what, cuda_ms(fn),
+                    device_ms(fn, keys) if device_times else None,
+                    bound_ms(nbytes)))
     return out
 
 
@@ -930,7 +941,10 @@ def main(argv: list) -> int:
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])}) "
         + ", ".join(f"{k}={v}" for k, v in libs.items()))
 
-    err, kms, variants = phase_kernels(topk, group)
+    # With --profile the kernel phase opens no profiler session: after
+    # those sessions, every later one of a --profile run traced no device
+    # activity (the query profiles, 2^25 rows, NVIDIA H100 80GB HBM3).
+    err, kms, others = phase_kernels(topk, group, device_times=not profile)
     xerr, xms = phase_expand_kernels(expand)
     err.update(xerr)
     kms.update(xms)
@@ -949,7 +963,7 @@ def main(argv: list) -> int:
             f"ms = {100 * t['bound_ms'] / t['ms']!r}%{extra} [{name}]")
     log(f"K1/K2 at other inputs on {name} (n={ROWS}; CUDA events, mean of "
         "20 calls; profiler device time of the kernels a call; bound):")
-    for what, ev, dev, bd in variants:
+    for what, ev, dev, bd in others:
         share = "" if dev is None else f" = {100 * bd / dev!r}% of the device time"
         log(f"  {what}: events {ev!r} ms, device {dev!r} ms, bound {bd!r} ms"
             f"{share} [{name}]")

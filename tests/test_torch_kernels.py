@@ -191,6 +191,13 @@ class _Warp:
         self.queue[self.q:self.q + cnt] = v[passed]  # lane order
         self.q += cnt
 
+    def seed(self, units):  # the kernel's WarpTopK::seed
+        J = max(1, self.K // 32)
+        lanes = units.transpose(1, 0, 2).reshape(32, 16)
+        m = np.sort(lanes, axis=1)[:, -J].min()
+        below = np.nextafter(np.float32(m), np.float32(-np.inf))
+        self.thr = max(self.thr, below)
+
     def consume(self, units):  # units: (4, 32, 4) values
         self.thr = max(self.thr, self.block[0])
         if not (units > self.thr).any():
@@ -216,21 +223,24 @@ def model_topk(x, K, threads=64, grid=3, head=0):
         rows[ok] = x4[idx[ok]]
         return rows
 
-    def steps(t0):  # one warp's consume calls, in order
+    def steps(t0):  # one warp's calls, in order: ("seed"|"consume", units)
         if t0 < extras.shape[0]:
             first = ninf4.copy()
             got = extras[t0:t0 + 32]
             first[: got.shape[0], 0] = got
-            yield np.stack([first, ninf4, ninf4, ninf4])
+            yield "consume", np.stack([first, ninf4, ninf4, ninf4])
         u = t0
         unroll = topk_kernel.UNROLL
+        if u + (unroll - 1) * stride + 31 < nvec:
+            yield "seed", np.stack([unit_rows(u + m * stride)
+                                    for m in range(4)])
         while u + (unroll - 1) * stride + 31 < nvec:
             for m0 in range(0, unroll, 4):
-                yield np.stack([unit_rows(u + m * stride)
-                                for m in range(m0, m0 + 4)])
+                yield "consume", np.stack([unit_rows(u + m * stride)
+                                           for m in range(m0, m0 + 4)])
             u += unroll * stride
         while u < nvec:
-            yield np.stack([unit_rows(u), ninf4, ninf4, ninf4])
+            yield "consume", np.stack([unit_rows(u), ninf4, ninf4, ninf4])
             u += stride
 
     block_lists = []
@@ -242,7 +252,8 @@ def model_topk(x, K, threads=64, grid=3, head=0):
         for i in range(max(map(len, runs))):
             for w, run in zip(warps, runs):
                 if i < len(run):
-                    w.consume(run[i])
+                    step, units = run[i]
+                    getattr(w, step)(units)
         for w in warps:
             if w.q > 0:
                 w.flush()

@@ -25,8 +25,7 @@ class EngineConfig:
     midrange_group_base_slots: int = 1 << 20
     midrange_group_max_slots: int = 1 << 23
     # SUM/COUNT-only midrange queries take the histogram kernel (K2) up
-    # to this many slots (reference: mxu_group_max_slots; v5e-derived;
-    # K2 itself holds at most 2^16).
+    # to this many slots (reference: mxu_group_max_slots; v5e-derived).
     group_hist_max_slots: int = 1 << 16
     # Materialised joins memoised per probe table (LRU entries; 0 turns
     # the memo off, as timing runs must).

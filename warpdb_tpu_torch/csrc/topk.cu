@@ -25,8 +25,9 @@
 //      positions from __ballot_sync; a full queue is sorted (bitonic) and
 //      merged into the list (max of the list and the reversed queue, then
 //      a bitonic clean), which raises the threshold.  A warp visits only
-//      the value positions where some lane passes.  Registers stay under
-//      64 at every K (no spills).
+//      the value positions where some lane passes, and seeds its
+//      threshold from its first values (WarpTopK::seed).  Registers stay
+//      under 64 at every K (no spills).
 //   3. Merge: the block's warp lists merge pairwise in log2(32) = 5 rounds
 //      of one bitonic merge each (log2(2L) steps, not K rounds).  The
 //      block writes its sorted top-K, and the last block to finish (a
@@ -146,6 +147,36 @@ struct WarpTopK {
     q += __popc(m);
   }
 
+  // Before the warp's first sixteen values a lane: each lane's J-th
+  // largest (J = max(1, K / 32)) bounds K values of the warp from below
+  // at their minimum m, so every value of the top K is >= m, and a test
+  // strictly above the float below m keeps all of them.  Without it the
+  // first values all pass and flood the queue.
+  __device__ __forceinline__ void seed(float4 a0, float4 a1, float4 a2,
+                                       float4 a3) {
+    constexpr int J = K / 32 > 1 ? K / 32 : 1;
+    float t[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) t[j] = neg_inf();
+    const float4 a[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float v = i % 4 == 0 ? a[i / 4].x : i % 4 == 1 ? a[i / 4].y
+              : i % 4 == 2 ? a[i / 4].z : a[i / 4].w;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float hi = fmaxf(t[j], v);
+        v = fminf(t[j], v);
+        t[j] = hi;
+      }
+    }
+    float m = t[J - 1];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = fminf(m, __shfl_xor_sync(kFull, m, off));
+    thr = fmaxf(thr, nextafterf(m, neg_inf()));
+  }
+
   // Sixteen values a lane; the common case is one vote that none passes.
   // Otherwise only the positions where some lane passes are offered.
   __device__ __forceinline__ void consume(float4 a0, float4 a1, float4 a2,
@@ -206,6 +237,9 @@ topk_kernel(const float* __restrict__ x, long long n, int head,
   // so that every lane votes.
   const float4* x4 = reinterpret_cast<const float4*>(x + head);
   long long u = tid - lane;
+  if (u + (U - 1) * stride + 31 < nvec)
+    w.seed(__ldg(x4 + u + lane), __ldg(x4 + u + lane + stride),
+           __ldg(x4 + u + lane + 2 * stride), __ldg(x4 + u + lane + 3 * stride));
   for (; u + (U - 1) * stride + 31 < nvec; u += U * stride) {
     float4 a[U];
 #pragma unroll

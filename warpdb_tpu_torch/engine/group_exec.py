@@ -43,7 +43,6 @@ from ..ops.aggregate import (
     slot_group_aggregate,
     sorted_first_flags,
 )
-from ..ops.group_kernel import MAX_SLOTS as HIST_MAX_SLOTS
 from ..ops.sort import U32_MAX, float_sort_key, int_sort_key, lexsort
 from . import udf as udf_mod
 from .compiler import (
@@ -636,12 +635,12 @@ def _try_dense_group(query, table, group_keys, vexpr_nodes, vexpr_canons,
             and num_slots > table.num_rows):
         return None
     # Midrange (reference ``_midrange_group_run``): SUM/COUNT-only queries
-    # up to ``group_hist_max_slots`` (at most what K2 holds) take kernel
-    # K2.  K2 adds row by row, so a non-finite value reaches only its own
-    # slot: the reference's finite-values gate (a one-hot product hazard)
-    # is dropped.  The reference's dense tier has no device finish.
+    # up to ``group_hist_max_slots`` take kernel K2.  K2 adds with
+    # atomics, so a non-finite value reaches only its own slot: the
+    # reference's finite-values gate (a one-hot product hazard) is
+    # dropped.  The reference's dense tier has no device finish.
     use_hist = (midrange and set(need) <= {"sum"}
-                and num_slots <= min(cfg.group_hist_max_slots, HIST_MAX_SLOTS))
+                and num_slots <= cfg.group_hist_max_slots)
     df = None
     if midrange:
         keys_canon = tuple(k.canonical() for k in group_keys)

@@ -98,7 +98,6 @@ def group_counts_sums_plain(gid: torch.Tensor, values, num_slots: int):
 
 
 _blocks_cache: dict = {}
-_sms: dict = {}
 
 
 def _blocks_per_sm(fn, device, hc: int, nv: int, plan: Plan) -> int:
@@ -146,10 +145,7 @@ def group_counts_sums(gid: torch.Tensor, values, num_slots: int):
     counts = torch.empty(num_slots, dtype=torch.int32, device=dev)
     sums = torch.empty((len(values), num_slots), dtype=torch.float32,
                        device=dev)
-    sms = _sms.get(dev.index)
-    if sms is None:
-        sms = _sms[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load("group_hist")
     # The first launch counts; each batch of up to four columns sums.

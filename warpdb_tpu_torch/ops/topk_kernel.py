@@ -3,7 +3,7 @@
 Replaces ``warpdb_tpu/ops/pallas_topk.py:pallas_topk_candidates`` (the
 streaming per-lane top-k Pallas kernel).  The CUDA kernel is
 ``csrc/topk.cu``: one launch streams the input with 16-byte loads, keeps
-each warp's top-k in shared memory behind a warp-wide threshold, merges
+each warp's top-k in shared memory behind a block-wide threshold, merges
 the warps' lists in each block and the blocks' lists in the last block to
 finish.  It reads every input byte once, so it is bound by device-memory
 bandwidth; see the source for the design.
@@ -70,7 +70,6 @@ def topk_candidates_plain(u: torch.Tensor, k: int) -> torch.Tensor:
 # resets, and the blocks' scratch lists; launches on one stream reuse
 # both in order.
 _scratch: dict = {}
-_sms: dict = {}
 
 
 def topk_candidates(u: torch.Tensor, k: int) -> torch.Tensor:
@@ -90,10 +89,7 @@ def topk_candidates(u: torch.Tensor, k: int) -> torch.Tensor:
     u = u.contiguous()
     n = u.shape[0]
     dev = u.device
-    sms = _sms.get(dev.index)
-    if sms is None:
-        sms = _sms[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _scratch.get((dev.index, stream))
     if scratch is None:
