@@ -13,9 +13,9 @@ Phases, each raising on failure:
    K1 at k = 16, 32, 64, 128 over random, ascending and duplicate values
    at 2^25 rows and at its edge shapes (n = 1000, under one wave, ragged,
    views 1 and 3 floats in); K2 at 4097..65536 slots with 0, 1, 4 and 5
-   value columns, one hot slot, a Zipf mix and ±inf/NaN values (float64
-   holds the sums; the plain version too where its own f32 chain is
-   within the tolerance); K3-K5 bit for bit at the join's full sizes (K3
+   value columns, one hot slot, a Zipf mix and ±inf/NaN values (sums held
+   to the plain version, which adds in float64, and to NumPy float64);
+   K3-K5 bit for bit at the join's full sizes (K3
    and K4 also at their edge shapes).  Then each timed at the main path's
    shapes beside its plain version, the one PyTorch call computing the
    same function where there is one, and its bound (bytes over the card's
@@ -35,14 +35,19 @@ Phases, each raising on failure:
    launch counters must rise during this phase;
 6. timing: median wall time of 5 warm runs per query (joins with every
    join memo off or dropped before the run);
-7. TPC-H: the 22 queries of ``benchmarks/tpch.py`` (subqueries, CTEs,
+7. windows: window functions, window expressions, QUALIFY and grouping
+   sets over the same 2^25-row table through ``query_sql`` /
+   ``query_sql_table``, each checked against NumPy (ranks, counts and row
+   order exactly, sums within SUM_RTOL of float64) and timed (median of 5
+   warm runs); the grouping set over ``k`` must launch K2;
+8. TPC-H: the 22 queries of ``benchmarks/tpch.py`` (subqueries, CTEs,
    derived tables, multi-way joins) through ``query_sql_table`` at 2^22
    lineitem rows, each checked against the suite's NumPy oracle with its
    own gate; per query the K1-K5 launches, the device of every
    materialised table (it must be the card), the median of 5 warm runs
    with every memo dropped before each run, and the host round trip of
    its materialised tables; the phase must launch a kernel;
-8. with ``--profile`` only: one ``torch.profiler`` run per query (card
+9. with ``--profile`` only: one ``torch.profiler`` run per query (card
    busy time, idle share, largest device items) and each kernel's
    registers and spills from ``ptxas -v``.
 
@@ -121,6 +126,33 @@ JOIN_QUERIES = [
     ("join_left_count",
      "SELECT COUNT(dimk.w) FROM t LEFT JOIN dimk ON k = dimk.k", True),
 ]
+
+# The window phase: (name, SQL, entry point), over bench.py's table.
+WINDOW_QUERIES = [
+    ("win_part_sum", "SELECT SUM(price) OVER (PARTITION BY quantity) FROM t "
+     "WHERE price > 99", "sql"),
+    ("win_part_avg_k", "SELECT AVG(price) OVER (PARTITION BY k) FROM t",
+     "sql"),
+    ("win_row_number", "SELECT ROW_NUMBER() OVER (PARTITION BY quantity "
+     "ORDER BY price DESC) FROM t", "sql"),
+    ("win_running_sum", "SELECT SUM(price) OVER (PARTITION BY quantity "
+     "ORDER BY price ASC) FROM t", "sql"),
+    ("win_rows_frame", "SELECT AVG(price) OVER (PARTITION BY quantity ORDER "
+     "BY price ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING) FROM t", "sql"),
+    ("win_range_count", "SELECT COUNT(price) OVER (PARTITION BY k ORDER BY "
+     "price RANGE BETWEEN 0.5 PRECEDING AND 0.5 FOLLOWING) FROM t", "sql"),
+    ("win_lag", "SELECT LAG(price, 1) OVER (PARTITION BY k ORDER BY price) "
+     "FROM t", "sql"),
+    ("win_expr_dev", "SELECT price - AVG(price) OVER (PARTITION BY quantity) "
+     "AS dev FROM t WHERE price > 99 ORDER BY dev DESC LIMIT 10", "sql"),
+    ("qualify_top3", "SELECT k, price FROM t QUALIFY ROW_NUMBER() OVER "
+     "(PARTITION BY k ORDER BY price DESC) <= 3 ORDER BY k ASC, price DESC",
+     "table"),
+    ("sets_k_quantity", "SELECT quantity, k, SUM(price) FROM t GROUP BY "
+     "GROUPING SETS ((k), (quantity), ())", "table"),
+]
+WINDOW_SUMS = {"win_part_sum", "win_part_avg_k", "win_running_sum",
+               "win_rows_frame", "win_expr_dev", "sets_k_quantity"}
 
 # What the join path memoises on a table instance (besides the join memo,
 # which ``join_cache_entries = 0`` turns off).
@@ -255,6 +287,140 @@ def expected_joins(d: dict, j: dict) -> dict:
     }
 
 
+def _fsk(x: np.ndarray) -> np.ndarray:
+    """The engine's f32 total-order key (``float_sort_key``) in NumPy."""
+    x = np.where(x == 0, np.float32(0), x).astype(np.float32)
+    x = np.where(np.isnan(x), np.float32(np.nan), x)
+    b = x.view(np.uint32).astype(np.int64)
+    return np.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
+
+
+def _run_starts(*cols) -> np.ndarray:
+    """Run-start flags over sorted rows: row 0, and each row where any
+    column differs from the row before."""
+    first = np.zeros(cols[0].shape[0], bool)
+    first[:1] = True
+    for c in cols:
+        first[1:] |= c[1:] != c[:-1]
+    return first
+
+
+def _segments(first: np.ndarray) -> tuple:
+    """Each row's run start and end from the run-start flags."""
+    n = first.shape[0]
+    rows = np.arange(n)
+    last = np.ones(n, bool)
+    last[:-1] = first[1:]
+    start = np.maximum.accumulate(np.where(first, rows, 0))
+    end = np.minimum.accumulate(np.where(last, rows, n)[::-1])[::-1]
+    return start, end
+
+
+def _desc_row_number(part_s, val_s) -> np.ndarray:
+    """ROW_NUMBER() OVER (PARTITION BY part ORDER BY val DESC), ties by
+    row, for rows sorted stably by (part, val ascending): the rows after
+    the row's tie run in its partition, then its place in the run."""
+    pos = np.arange(part_s.shape[0])
+    _ps, pe = _segments(_run_starts(part_s))
+    rs, re_ = _segments(_run_starts(part_s, val_s))
+    return (pe - re_) + (pos - rs) + 1
+
+
+def expected_windows(d: dict) -> dict:
+    """The window phase's answers in NumPy, from one stable sort by
+    (quantity, price) and one by (k, price); sums in float64."""
+    p, q, k = d["price"], d["quantity"], d["k"]
+    n = p.shape[0]
+    qi, ki = q.astype(np.int64), k.astype(np.int64)
+    p64 = p.astype(np.float64)
+    hot = p > np.float32(99)
+    sum_hot = np.bincount(qi[hot], weights=p64[hot], minlength=GROUP_SLOTS)
+    cnt_hot = np.bincount(qi[hot], minlength=GROUP_SLOTS)
+    sums_k = np.bincount(ki, weights=p64, minlength=KEY_SLOTS)
+    cnt_k = np.bincount(ki, minlength=KEY_SLOTS)
+    sums_q = np.bincount(qi, weights=p64, minlength=GROUP_SLOTS)
+    out = {"win_part_sum": sum_hot[qi[hot]],
+           "win_part_avg_k": (sums_k / np.maximum(cnt_k, 1))[ki]}
+
+    # Stable sorts by (partition, price): one int64 key each.
+    oq = np.argsort((qi << 32) | _fsk(p), kind="stable")
+    qs, ps = q[oq], p[oq]
+    rn = np.empty(n)
+    rn[oq] = _desc_row_number(qs, ps)
+    out["win_row_number"] = rn
+    run, frame = np.empty(n), np.empty(n)
+    qfirst = _run_starts(qs)
+    _qs0, qend = _segments(qfirst)
+    for lo_row in np.flatnonzero(qfirst):
+        idx = oq[lo_row:qend[lo_row] + 1]
+        m = idx.shape[0]
+        pre = np.concatenate([[0.0], np.cumsum(p64[idx])])
+        i = np.arange(m)
+        run[idx] = pre[1:]
+        lo, hi = np.maximum(i - 3, 0), np.minimum(i + 3, m - 1)
+        frame[idx] = (pre[hi + 1] - pre[lo]) / (hi - lo + 1)
+    out["win_running_sum"], out["win_rows_frame"] = run, frame
+    del run, frame, rn, qs, ps, oq
+
+    keys = (ki << 32) | _fsk(p)
+    ok = np.argsort(keys, kind="stable")
+    keys = keys[ok]
+    ks, ps = k[ok], p[ok]
+    kstart, _kend = _segments(_run_starts(ks))
+    seg = ki[ok] << 32
+    lo = np.searchsorted(keys, seg | _fsk(ps - np.float32(0.5)), "left")
+    hi = np.searchsorted(keys, seg | _fsk(ps + np.float32(0.5)), "right")
+    cnt = np.empty(n)
+    cnt[ok] = hi - lo
+    out["win_range_count"] = cnt
+    pos = np.arange(n)
+    lag = np.empty(n, np.float32)
+    lag[ok] = np.where(pos > kstart, ps[np.maximum(pos - 1, 0)], np.nan)
+    out["win_lag"] = lag
+    rn_k = _desc_row_number(ks, ps)
+    top = np.sort(ok[rn_k <= 3])
+    top = top[np.lexsort((-p[top], k[top]))]
+    out["qualify_top3"] = {"k": k[top], "price": p[top]}
+    del keys, seg, lo, hi, cnt, lag, rn_k, ok, ks, ps
+
+    dev = p64[hot] - (sum_hot / np.maximum(cnt_hot, 1))[qi[hot]]
+    out["win_expr_dev"] = np.sort(dev)[::-1][:10]
+    occ = np.flatnonzero(cnt_k > 0)
+    nan_k, nan_q = np.full(occ.shape[0], np.nan), np.full(GROUP_SLOTS, np.nan)
+    out["sets_k_quantity"] = {
+        "quantity": np.concatenate([nan_k, np.arange(GROUP_SLOTS), [np.nan]]),
+        "k": np.concatenate([occ, nan_q, [np.nan]]),
+        "SUM(price[idx])": np.concatenate([sums_k[occ], sums_q,
+                                           [p64.sum()]]),
+    }
+    return out
+
+
+def check_window(name: str, got, want) -> float:
+    """One window query's answer against NumPy: exact, or within SUM_RTOL
+    of float64 for sums (NaN equal to NaN); a table column by column.
+    Returns the largest absolute error."""
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            raise AssertionError(f"{name}: columns {list(got)}")
+        return max(check_window(f"{name}[{c}]", got[c], want[c])
+                   for c in want)
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {got.shape} != {want.shape}")
+    if name == "win_expr_dev":
+        got = np.sort(got)[::-1]  # near-equal deviations may swap
+    if name.split("[")[0] in WINDOW_SUMS and not name.endswith(
+            ("[quantity]", "[k]")):
+        np.testing.assert_allclose(got, want, rtol=SUM_RTOL, equal_nan=True,
+                                   err_msg=name)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    fin = np.isfinite(want)
+    return float(np.max(np.abs(got[fin] - want[fin]))) if fin.any() else 0.0
+
+
 def check(name: str, got, want) -> float:
     got = np.asarray(got, dtype=np.float64)
     want = np.asarray(want, dtype=np.float64)
@@ -367,39 +533,31 @@ def _group_ids(g, case: str, slots: int, n: int) -> np.ndarray:
     return gid
 
 
-def _check_group(group, gid, gd, vals, vd, slots, what, err, ref,
-                 hold_plain: bool = True) -> str:
-    """K2 on the card against its plain version and float64 sums
-    (``ref[c]`` memoises column c's float64 bincount).  Where one slot
-    takes millions of rows the plain version's single f32 chain drifts
-    from float64 by more than SUM_RTOL; there (``hold_plain`` False) the
-    kernel is held to float64 alone, both drifts are reported, and
-    ``err`` (the distance from the plain version) is left as it was."""
+def _check_group(group, gid, gd, vals, vd, slots, what, err, ref) -> str:
+    """K2 on the card against its plain version (which adds in float64)
+    and NumPy float64 sums (``ref[c]`` memoises column c's bincount).
+    Returns the kernel's largest relative error against float64."""
     c, s = group.group_counts_sums(gd, vd, slots)
     cp, sp = group.group_counts_sums_plain(gd, vd, slots)
     torch.cuda.synchronize()
     if not torch.equal(c, cp):
         raise AssertionError(f"K2 {what}: counts differ")
     ok = (gid >= 0) & (gid < slots)
-    drift = ""
+    rel = 0.0
     for i, (a, b) in enumerate(zip(s, sp)):
-        if hold_plain:
-            torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=1e-2)
-            err["group_hist"] = max(err["group_hist"],
-                                    float((a - b).abs().max()))
+        torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=1e-2)
+        err["group_hist"] = max(err["group_hist"],
+                                float((a - b).abs().max()))
         if i not in ref:
             ref[i] = np.bincount(gid[ok], weights=vals[i][ok].astype(
                 np.float64), minlength=slots)
         got = a.cpu().numpy()
         np.testing.assert_allclose(got, ref[i], rtol=SUM_RTOL, atol=1e-2)
-        if not hold_plain:
-            big = np.abs(ref[i]) > 1.0
-            rel = [float(np.max(np.abs(x[big] - ref[i][big])
-                                / np.abs(ref[i][big])))
-                   for x in (got, b.cpu().numpy())]
-            drift = (f"; relative error against float64: kernel "
-                     f"{rel[0]!r}, plain {rel[1]!r}")
-    return drift
+        big = np.abs(ref[i]) > 1.0
+        if big.any():
+            rel = max(rel, float(np.max(np.abs(got[big] - ref[i][big])
+                                        / np.abs(ref[i][big]))))
+    return rel
 
 
 def phase_kernels(topk, group, device_times: bool) -> tuple:
@@ -448,12 +606,12 @@ def phase_kernels(topk, group, device_times: bool) -> tuple:
     for slots in (4097, KEY_SLOTS):
         for case in ("one_slot", "zipf"):
             gid = _group_ids(g, case, slots, ROWS)
-            drift = _check_group(group, gid, torch.from_numpy(gid).cuda(),
-                                 pool[:1], pool_d[:1], slots,
-                                 f"{case} slots={slots}", err, {},
-                                 hold_plain=False)
+            rel = _check_group(group, gid, torch.from_numpy(gid).cuda(),
+                               pool[:1], pool_d[:1], slots,
+                               f"{case} slots={slots}", err, {})
             log(f"K2 {case} slots={slots} nv=1: counts exact, sums within "
-                f"rtol {SUM_RTOL} of float64{drift}")
+                f"rtol {SUM_RTOL} of plain and float64 (kernel {rel!r} "
+                "from float64)")
     # ±inf and NaN values go through K2 (the TPU path gated them off): a
     # non-finite value reaches only its own slot, as the reference's
     # scatter engine gives; slot 5 takes one warp's rows (the hot path).
@@ -683,6 +841,51 @@ def phase_inf_group(WarpDB, HostTable, group) -> None:
     finite = np.delete(out, inf_slot)
     np.testing.assert_allclose(finite, np.delete(want, inf_slot), rtol=SUM_RTOL)
     log("K2 ±inf GROUP BY through the query path: the reference's answer")
+
+
+def phase_windows(db, data: dict, kernels: dict, name: str) -> tuple:
+    """The window queries over bench.py's table, each checked against
+    NumPy, with the kernel launches they make (counters from 0), then the
+    median of 5 warm runs each.  Returns ``(launches, run, queries)``."""
+    t0 = time.perf_counter()
+    want = expected_windows(data)
+    log(f"windows: NumPy oracle {time.perf_counter() - t0!r} s")
+
+    def run(kind, q):
+        return db.query_sql_table(q) if kind == "table" else db.query_sql(q)
+
+    queries = [(api, n, q) for n, q, api in WINDOW_QUERIES]
+    for fn in kernels.values():
+        fn.launches = 0
+    for kind, n, q in queries:
+        before = {k: fn.launches for k, fn in kernels.items()}
+        got = run(kind, q)
+        torch.cuda.synchronize()
+        per = {k: fn.launches - before[k] for k, fn in kernels.items()
+               if fn.launches > before[k]}
+        e = check_window(n, got, want[n])
+        rows = len(next(iter(got.values())) if isinstance(got, dict) else got)
+        log(f"window {n}: agrees with numpy ({rows} rows, max abs err {e!r}; "
+            f"launches {per}) — {q}")
+        del got
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    if launches["group_hist"] <= 0:
+        raise AssertionError("windows: the grouping set over k did not "
+                             "launch K2")
+    log(f"window launches: {launches}")
+    del want
+    log(f"window timing on {name} (median of 5 warm runs, host clock, call "
+        "to the host result):")
+    for kind, n, q in queries:
+        run(kind, q)
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run(kind, q)
+            ts.append(time.perf_counter() - t0)
+        log(f"  query {n}: median {sorted(ts)[2] * 1e3!r} ms over 5 warm runs "
+            f"[{name}]")
+    return launches, run, queries
 
 
 def load_tpch():
@@ -1072,6 +1275,11 @@ def main(argv: list) -> int:
         log(f"  query {n}: median {sorted(ts)[2] * 1e3!r} ms over 5 warm runs "
             f"[{name}]")
 
+    win_launches, win_run, win_queries = phase_windows(db, data, kernels,
+                                                       name)
+    for k, c in win_launches.items():
+        launches[k] += c
+
     tpch_launches, tpch_run, tpch_queries = phase_tpch(WarpDB, HostTable,
                                                        kernels, name)
     for k, c in tpch_launches.items():
@@ -1079,6 +1287,7 @@ def main(argv: list) -> int:
 
     if profile:
         phase_profile(run, queries + join_queries, name)
+        phase_profile(win_run, win_queries, name)
         phase_profile(tpch_run, tpch_queries, name)
         phase_ptxas(_build)
 

@@ -282,6 +282,84 @@ def test_slice_launches_both_kernels(dbs):
     assert group_kernel.group_counts_sums.launches == k2 + 1
 
 
+# --- windows, QUALIFY and grouping sets on the card ------------------------
+
+# Integral values (quantity) under the window expressions keep their
+# averages exact in f32 on both devices.
+WINDOW_QUERIES = [
+    "SELECT SUM(price) OVER (PARTITION BY quantity) FROM t WHERE price > 99",
+    "SELECT AVG(price) OVER (PARTITION BY k) FROM t",
+    "SELECT MIN(nv) OVER (PARTITION BY s) FROM t",
+    "SELECT ROW_NUMBER() OVER (PARTITION BY quantity ORDER BY price DESC) "
+    "FROM t",
+    "SELECT DENSE_RANK() OVER (PARTITION BY s ORDER BY fk) FROM t",
+    "SELECT CUME_DIST() OVER (PARTITION BY quantity ORDER BY fk DESC) FROM t",
+    "SELECT SUM(price) OVER (PARTITION BY quantity ORDER BY price ASC) FROM t",
+    "SELECT MAX(nv) OVER (PARTITION BY quantity ORDER BY price) FROM t",
+    "SELECT AVG(price) OVER (PARTITION BY quantity ORDER BY price ROWS "
+    "BETWEEN 3 PRECEDING AND 3 FOLLOWING) FROM t",
+    "SELECT MIN(price) OVER (PARTITION BY s ORDER BY ki ROWS BETWEEN 5 "
+    "PRECEDING AND 2 FOLLOWING) FROM t",
+    "SELECT COUNT(price) OVER (PARTITION BY k ORDER BY price RANGE BETWEEN "
+    "0.5 PRECEDING AND 0.5 FOLLOWING) FROM t",
+    "SELECT SUM(quantity) OVER (PARTITION BY s ORDER BY fk GROUPS BETWEEN 1 "
+    "PRECEDING AND 1 FOLLOWING) FROM t",
+    "SELECT LAG(price, 1) OVER (PARTITION BY k ORDER BY price) FROM t",
+    "SELECT NTH_VALUE(price, 2) OVER (PARTITION BY quantity ORDER BY fk) "
+    "FROM t",
+    "SELECT NTILE(5) OVER (PARTITION BY quantity ORDER BY price) FROM t",
+    "SELECT quantity - AVG(quantity) OVER (PARTITION BY k) AS dev FROM t "
+    "WHERE price > 90 ORDER BY dev DESC, price ASC LIMIT 10",
+    "SELECT s, quantity - AVG(quantity) OVER (PARTITION BY ki) AS d FROM t",
+    "SELECT k, price FROM t QUALIFY ROW_NUMBER() OVER (PARTITION BY k "
+    "ORDER BY price DESC) <= 3 ORDER BY k ASC, price DESC",
+    "SELECT quantity, k, SUM(price) FROM t GROUP BY GROUPING SETS ((k), "
+    "(quantity), ())",
+    "SELECT s, quantity, COUNT(*) FROM t GROUP BY ROLLUP(s, quantity)",
+]
+
+
+@pytest.mark.parametrize("q", WINDOW_QUERIES)
+def test_window_on_card_matches_cpu(dbs, q):
+    gpu, cpu = dbs
+    got, want = gpu.query_sql_table(q), cpu.query_sql_table(q)
+    assert list(got) == list(want), q
+    for name in want:
+        w, g = want[name], got[name]
+        assert len(g) == len(w), q
+        if w and isinstance(w[0], str):
+            assert g == w, q
+            continue
+        ga, wa = np.asarray(g), np.asarray(w)
+        assert ga.dtype.kind == wa.dtype.kind, q
+        # Sums add in another order on the card: rtol 1e-5.
+        np.testing.assert_allclose(ga, wa, rtol=1e-5, atol=1e-6,
+                                   equal_nan=True, err_msg=f"{q} [{name}]")
+
+
+def test_window_values_on_the_card(dbs, monkeypatch):
+    """Every window value tensor lives on the card, and the grouping set
+    over ``k`` launches K2."""
+    from warpdb_tpu_torch.engine import window_exec
+
+    gpu, _cpu = dbs
+    seen = []
+    values = window_exec._window_values
+
+    def spy(*a, **kw):
+        out = values(*a, **kw)
+        seen.append(out.device)
+        return out
+
+    monkeypatch.setattr(window_exec, "_window_values", spy)
+    k2 = group_kernel.group_counts_sums.launches
+    for q in WINDOW_QUERIES:
+        gpu.query_sql_table(q)
+    assert len(seen) >= len(WINDOW_QUERIES) - 2
+    assert all(d.type == "cuda" for d in seen), seen
+    assert group_kernel.group_counts_sums.launches > k2
+
+
 # --- K3, K4, K5: bit for bit against their plain versions ----------------
 
 

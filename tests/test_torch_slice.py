@@ -261,21 +261,12 @@ def test_midrange_inf_values_match_reference():
           PortDB(HostTable.from_dict(data), device="cpu").query_sql(q), q)
 
 
+# Windows, QUALIFY and grouping sets answer now: their former refusals
+# are differential cases in test_torch_window.py.
 UNSUPPORTED = [
     ("SELECT a.price FROM t a LEFT JOIN t b ON a.ki < b.ki", "JOIN"),
-    ("SELECT price FROM t QUALIFY ROW_NUMBER() OVER (ORDER BY price) <= 3",
-     "QUALIFY"),
-    ("SELECT quantity FROM t GROUP BY GROUPING SETS ((quantity), ())",
-     "GROUPING SETS"),
-    ("WITH c AS (SELECT SUM(price) AS sp FROM t GROUP BY ROLLUP(quantity)) "
-     "SELECT sp FROM c", "ROLLUP"),
-    ("SELECT SUM(price) OVER (PARTITION BY quantity) FROM t",
-     "Window functions"),
-    ("SELECT SUM(price) FROM t GROUP BY ROLLUP(quantity)", "GROUPING SETS"),
     ("SELECT STRING_AGG(s, ',') FROM t GROUP BY quantity", "STRING_AGG"),
     ("SELECT APPROX_COUNT_DISTINCT(price) FROM t", "APPROX_COUNT_DISTINCT"),
-    ("SELECT * FROM (SELECT price, RANK() OVER (ORDER BY price) AS r "
-     "FROM t) AS d", "Window functions"),
     ("CREATE TABLE x AS SELECT price FROM t", "CREATE"),
 ]
 

@@ -11,8 +11,9 @@ Counterpart of ``warpdb_tpu/engine/executor.py`` for the port's slice:
 * ``run_query_table``: the same pipeline returning every select item as
   a named, row-aligned column.
 
-CTEs and set operations resolve at the facade.  Windows, QUALIFY,
-grouping sets, STRING_AGG and APPROX_COUNT_DISTINCT raise
+CTEs and set operations resolve at the facade.  Window functions and
+QUALIFY lower through ``window_exec``, grouping sets through
+``grouping_sets``; STRING_AGG and APPROX_COUNT_DISTINCT raise
 ``UnsupportedError`` naming the feature.  Operators evaluate over the
 table's unpadded row views; PyTorch's dynamic shapes replace the
 reference's capacity buckets, and a filter is a boolean index, which
@@ -89,12 +90,19 @@ from .group_exec import (
     _run_grouped_multi,
     _try_dense_group,
 )
+from .grouping_sets import _run_grouping_sets
 from .optimizer import analyze_condition, expr_range, fold_constants
 from .subquery import (
     _CORR_PREFIX,
     _decorrelate_subqueries,
     _resolve_expr_subqueries,
     _resolve_from_subquery,
+)
+from .window_exec import (
+    _has_nested_window,
+    _run_qualify,
+    _run_window,
+    _run_window_exprs,
 )
 
 __all__ = [
@@ -122,13 +130,11 @@ def _next_pow2(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _reject_nodes(node: Optional[Node]) -> None:
+    """Raise ``UnsupportedError`` at STRING_AGG or APPROX_COUNT_DISTINCT
+    in ``node``, the two aggregates outside the port."""
     if node is None:
         return
     for n in walk(node):
-        if isinstance(n, WindowFunction):
-            raise UnsupportedError(
-                "Window functions are not supported by warpdb_tpu_torch yet"
-            )
         if isinstance(n, Aggregation) and n.agg in (
             AggregationType.STRING_AGG, AggregationType.APPROX_COUNT_DISTINCT,
         ):
@@ -139,18 +145,11 @@ def _reject_nodes(node: Optional[Node]) -> None:
 
 def reject_unsupported(query: Query) -> None:
     """Raise ``UnsupportedError`` naming the first feature of ``query``
-    outside the port (windows, QUALIFY, grouping sets, STRING_AGG,
-    APPROX_COUNT_DISTINCT).  Subqueries, CTE bodies and set-op branches
-    are checked when they run."""
-    if query.qualify is not None:
-        raise UnsupportedError("QUALIFY is not supported by warpdb_tpu_torch yet")
-    if query.group_by is not None and query.group_by.sets is not None:
-        raise UnsupportedError(
-            "GROUPING SETS / ROLLUP / CUBE are not supported by "
-            "warpdb_tpu_torch yet"
-        )
+    outside the port: STRING_AGG or APPROX_COUNT_DISTINCT in any clause.
+    Subqueries, CTE bodies and set-op branches are checked when they
+    run."""
     for node in [
-        *query.select_list, query.where, query.having,
+        *query.select_list, query.where, query.having, query.qualify,
         *(query.group_by.keys if query.group_by else ()),
         *(t.expr for t in (query.order_by.terms if query.order_by else ())),
         *(j.condition for j in query.joins),
@@ -402,6 +401,18 @@ def bind_strings(node: Optional[Node], table) -> Optional[Node]:
                     "key usage remain exact"
                 )
         return Aggregation(node.agg, be, node.param)
+    if isinstance(node, WindowFunction):
+        order = node.order_by
+        return WindowFunction(
+            node.agg,
+            bind_strings(node.expr, table),
+            tuple(bind_strings(p, table) for p in node.partition_by),
+            None if order is None
+            else OrderBy(bind_strings(order.expr, table), order.ascending),
+            node.frame,
+            node.frame_type,
+            node.param,
+        )
     return node
 
 
@@ -431,7 +442,8 @@ def _bind_query_strings(query: Query, table) -> Query:
         )
     if query.group_by is not None:
         q.group_by = GroupBy(
-            tuple(bind_strings(k, table) for k in query.group_by.keys)
+            tuple(bind_strings(k, table) for k in query.group_by.keys),
+            query.group_by.sets,
         )
     return q
 
@@ -611,7 +623,8 @@ def resolve_order_aliases(query: Query, columns=None) -> Query:
             changed = True
 
     new_group = query.group_by
-    if columns is not None and query.group_by is not None:
+    if (columns is not None and query.group_by is not None
+            and query.group_by.sets is None):
         cols = set(columns)
         keys = [
             alias_map[k.name] if is_alias_ref(k) and k.name not in cols else k
@@ -688,7 +701,7 @@ def _join_rewrites(query: Query, table, catalog):
     query = jx._split_join_residuals(query)
     query, catalog = jx._pushdown_build_filters(query, table, catalog)
     query, table = jx._pushdown_join_where(query, table, catalog)
-    if query.group_by is not None:
+    if query.group_by is not None and query.group_by.sets is None:
         rewritten = jx._try_eager_join_aggregate(query, table, catalog)
         if rewritten is not None:
             query, catalog = rewritten
@@ -701,7 +714,14 @@ def run_query(query: Query, table, catalog: Optional[dict] = None
     resolved by the facade); JOIN relations resolve through ``catalog``
     (an unknown name means ``table`` itself, the reference's demo
     semantics).  Returns the first select item's values (the reference's
-    single-vector contract)."""
+    single-vector contract).  Grouping sets, QUALIFY and window
+    expressions produce finished result tables: their first column."""
+    if ((query.group_by is not None and query.group_by.sets is not None)
+            or query.qualify is not None
+            or (query.group_by is None
+                and any(_has_nested_window(it) for it in query.select_list))):
+        out = run_query_table(query, table, catalog)
+        return next(iter(out.values()), np.zeros(0, np.float32))
     query, table, catalog = _resolve_subqueries(query, table, catalog)
     if any(isinstance(s, Alias) for s in query.select_list):
         query = copy.copy(query)
@@ -722,7 +742,9 @@ def run_query(query: Query, table, catalog: Optional[dict] = None
     if query.where is not None:
         where = fold_constants(query.where)
         verdict = analyze_condition(where, table.stats)
-        is_global_agg = query.group_by is None and any(
+        is_global_agg = query.group_by is None and not isinstance(
+            query.select_list[0], WindowFunction
+        ) and any(
             isinstance(n, Aggregation) for n in walk(query.select_list[0])
         )
         if verdict is False and not is_global_agg:
@@ -812,10 +834,21 @@ def run_query_table(query: Query, table, catalog: Optional[dict] = None
         q2.joins = ()
         return run_query_table(q2, joined, catalog)
 
+    # The reference's routing order: QUALIFY, grouping sets, then window
+    # expressions of an ungrouped query.
+    if query.qualify is not None:
+        return _run_qualify(query, table, catalog)
+    if query.group_by is not None and query.group_by.sets is not None:
+        return _run_grouping_sets(query, table, catalog)
+    if query.group_by is None and any(_has_nested_window(it)
+                                      for it in query.select_list):
+        return _run_window_exprs(query, table, catalog)
+
     items = [unalias(s) for s in query.select_list]
     if query.distinct and (len(items) > 1 or query.group_by is not None):
         if query.group_by is None and not any(
-            isinstance(n, Aggregation) for it in items for n in walk(it)
+            isinstance(n, (Aggregation, WindowFunction))
+            for it in items for n in walk(it)
         ):
             # SELECT DISTINCT a, b ≡ SELECT a, b GROUP BY a, b.
             keys = {it.canonical(): it for it in items}
@@ -842,7 +875,8 @@ def run_query_table(query: Query, table, catalog: Optional[dict] = None
         return {n: _slice_rows(v, query) for n, v in zip(names, cols)}
 
     if len(items) > 1 and not any(
-        isinstance(n, Aggregation) for it in items for n in walk(it)
+        isinstance(n, (Aggregation, WindowFunction))
+        for it in items for n in walk(it)
     ):
         # Non-grouped, join-free multi-item SELECT: one mask, one sort.
         q = _where_verdict(query, table)
@@ -910,6 +944,8 @@ def _run_projection(query: Query, table) -> np.ndarray:
     """Non-grouped SELECT of one item: projection, WHERE, ORDER BY (top-k
     or full sort), DISTINCT; one device→host transfer."""
     select = query.select_list[0]
+    if isinstance(select, WindowFunction):
+        return _run_window(query, table)
     if isinstance(select, Aggregation):
         return _run_global_agg(query, table)
     if any(isinstance(n, Aggregation) for n in walk(select)):

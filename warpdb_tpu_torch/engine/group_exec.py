@@ -283,11 +283,12 @@ def _grouped_plan(query: Query, select_items: list, table=None) -> dict:
     }
 
 
-def _row_mask(query, table, cols) -> torch.Tensor:
+def _row_mask(where, table, cols) -> torch.Tensor:
+    """The rows ``where`` keeps (every row when it is None)."""
     n = table.num_rows
-    if query.where is None:
+    if where is None:
         return torch.ones(n, dtype=torch.bool, device=table.device)
-    return broadcast(_as_bool(build_evaluator(query.where)(cols)), n)
+    return broadcast(_as_bool(build_evaluator(where)(cols)), n)
 
 
 def _grouped_partials(query: Query, table, plan: dict) -> "_HostGroupResult":
@@ -647,7 +648,7 @@ def _try_dense_group(query, table, group_keys, vexpr_nodes, vexpr_canons,
         df = _device_finish_plan(device_finish, keys_canon, vexpr_canons)
     cols = table.row_columns()
     n = table.num_rows
-    valid = _row_mask(query, table, cols)
+    valid = _row_mask(query.where, table, cols)
     keys = broadcast(kp["key_fn"](cols), n)
     vals = [broadcast(_as_f32(build_evaluator(v)(cols)), n)
             for v in vexpr_nodes]
@@ -707,7 +708,7 @@ def _grouped_value_order_stat(query, table, group_keys, spec, num_groups,
     key order as the aggregate table, so rows align."""
     agg, param = spec.agg, spec.param
     cols = table.row_columns()
-    valid = _row_mask(query, table, cols)
+    valid = _row_mask(query.where, table, cols)
     skeys = [k[valid] for k in
              _order_stat_keys(query, table, group_keys, raw_int_key, cols)]
     vals = broadcast(_as_f32(build_evaluator(spec.expr)(cols)),
@@ -754,7 +755,7 @@ def _sorted_group(query, table, group_keys, vexpr_nodes, vexpr_canons,
             group_keys[0].unqualified
         )
         raw_int = kd is not None and kd.value in ("int32", "int64", "string")
-    valid = _row_mask(query, table, cols)
+    valid = _row_mask(query.where, table, cols)
     vals = tuple(broadcast(_as_f32(build_evaluator(v)(cols)), n)
                  for v in vexpr_nodes)
     if raw_int:

@@ -83,15 +83,18 @@ def slice_plan(num_slots: int, has_count: int, nv: int) -> Plan:
 
 def group_counts_sums_plain(gid: torch.Tensor, values, num_slots: int):
     """Plain PyTorch version: ``bincount`` / ``index_add_`` with the same
-    out-of-range rule."""
+    out-of-range rule.  Each slot adds in float64 and rounds to f32 once,
+    as the card's kernel combines its partial tables in f64 (one f32 add
+    chain a slot drifts by 5e-4 at 2^21 rows on one hot slot)."""
     _check_slots(num_slots)
     ok = (gid >= 0) & (gid < num_slots)
     # Out-of-range rows go to an extra slot that is dropped.
     idx = torch.where(ok, gid, num_slots).to(torch.int64)
     counts = torch.bincount(idx, minlength=num_slots + 1)[:num_slots]
     sums = tuple(
-        torch.zeros(num_slots + 1, dtype=torch.float32, device=gid.device)
-        .index_add_(0, idx, v)[:num_slots]
+        torch.zeros(num_slots + 1, dtype=torch.float64, device=gid.device)
+        .index_add_(0, idx, v.to(torch.float64))[:num_slots]
+        .to(torch.float32)
         for v in values
     )
     return counts.to(torch.int32), sums
