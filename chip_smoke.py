@@ -47,7 +47,17 @@ Phases, each raising on failure:
    materialised table (it must be the card), the median of 5 warm runs
    with every memo dropped before each run, and the host round trip of
    its materialised tables; the phase must launch a kernel;
-9. with ``--profile`` only: one ``torch.profiler`` run per query (card
+9. surfaces: APPROX_COUNT_DISTINCT over bench.py's table (32 groups,
+   global, 65536 groups by the exact route) and per TPC-H supplier, each
+   held to a NumPy HyperLogLog model (registers bit for bit) and to the
+   exact distinct count; STRING_AGG per TPC-H customer against a Python
+   model; the Arrow export at 2^25 rows in process and in shared memory,
+   read back through the exporter's ctypes structs, and a struct array
+   with a utf8 column; ``query`` / ``query_np`` / ``query_arrow`` timed;
+   EXPLAIN ANALYZE naming K2 and K1; CREATE / query / DROP TABLE; the
+   DB-API; 20 HTTP requests (two threads at once for half) and the CLI in
+   a subprocess; the K1 and K2 counters must rise;
+10. with ``--profile`` only: one ``torch.profiler`` run per query (card
    busy time, idle share, largest device items) and each kernel's
    registers and spills from ``ptxas -v``.
 
@@ -953,8 +963,8 @@ def phase_tpch(WarpDB, HostTable, kernels: dict, name: str) -> tuple:
     against its NumPy oracle; per query the kernel launches, the
     materialised tables (all on the card), the median of 5 warm runs
     and the host round trip of its materialised tables.  Returns
-    ``(kernel launches over the checked runs, run function, queries)``
-    for the profile."""
+    ``(kernel launches over the checked runs, run function, queries,
+    facade, tables)``: the profile's inputs and the surfaces phase's."""
     from warpdb_tpu_torch.engine import executor, subquery
     from warpdb_tpu_torch.storage import DeviceTable
 
@@ -1045,45 +1055,484 @@ def phase_tpch(WarpDB, HostTable, kernels: dict, name: str) -> tuple:
                      f"{wall * 1e3!r} ms")
         log(f"  tpch {q}: median {med * 1e3!r} ms{extra} [{name}]")
     queries = [("sql", f"tpch_{q}", sql) for q, sql in tpch.QUERIES.items()]
-    return total, run, queries
+    return total, run, queries, db, tables
+
+
+def np_hll_registers(group: np.ndarray, skey: np.ndarray,
+                     n_groups: int) -> np.ndarray:
+    """The reference's HyperLogLog registers in NumPy from (group, f32
+    sort key) pairs (duplicates change nothing): murmur3 fmix32 of the
+    key in uint32, bucket = low 12 bits, rho = 21 - bit length of the
+    other 20; per (group, bucket) the largest rho."""
+    h = skey.astype(np.uint32)
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x85EBCA6B)
+    h ^= h >> np.uint32(13)
+    h *= np.uint32(0xC2B2AE35)
+    h ^= h >> np.uint32(16)
+    w = (h >> np.uint32(12)).astype(np.int64)
+    bits = np.where(w > 0, np.floor(np.log2(np.maximum(w, 1))) + 1, 0)
+    rho = (21 - bits).astype(np.int32)
+    slot = group.astype(np.int64) * 4096 + (h & np.uint32(4095)).astype(np.int64)
+    regs = np.zeros(n_groups * 4096, np.int32)
+    for r in range(1, 22):  # ascending: a larger rho overwrites
+        regs[slot[rho == r]] = r
+    return regs.reshape(n_groups, 4096)
+
+
+def np_distinct_pairs(group: np.ndarray, values: np.ndarray,
+                      value_slots: int = 0) -> tuple:
+    """The distinct (group, value) pairs, as (group ids, f32 sort keys),
+    ascending; -0.0 equals +0.0 and every NaN is one value.  With
+    ``value_slots`` (small non-negative integral values) an occupancy
+    table replaces the sort."""
+    g = group.astype(np.int64)
+    if value_slots:
+        occ = np.bincount(g * value_slots + values.astype(np.int64),
+                          minlength=(int(g.max()) + 1) * value_slots)
+        pairs = np.flatnonzero(occ)
+        return (pairs // value_slots,
+                _fsk((pairs % value_slots).astype(np.float32)))
+    # A sort and a neighbour compare (np.unique can take a slower hash
+    # path on tens of millions of distinct values).
+    pairs = np.sort((g << 32) | _fsk(values))
+    keep = np.ones(pairs.shape[0], bool)
+    keep[1:] = pairs[1:] != pairs[:-1]
+    pairs = pairs[keep]
+    return pairs >> 32, pairs & 0xFFFFFFFF
+
+
+def np_distinct_counts(pair_groups: np.ndarray) -> np.ndarray:
+    """Distinct values per occupied group, ascending group ids."""
+    counts = np.bincount(pair_groups)
+    return counts[counts > 0]
+
+
+def profiled(fn) -> tuple:
+    """One ``torch.profiler`` run of ``fn`` (CPU and CUDA activities):
+    ``(wall ms, device events, card busy ms)``, busy being the union of
+    the device intervals.  The tracer now and then returns a run without
+    its device events; such a run is profiled again, up to three times in
+    all (busy None after that)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    else:
+        return wall, [], None
+    busy, cur = 0.0, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if cur is None or s > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    return wall, dev, (busy + cur[1] - cur[0]) / 1e3
+
+
+def wall_busy(fn, reps: int = 5) -> tuple:
+    """Median host-clock wall of ``reps`` warm calls, then one profiled
+    run: (median ms, profiled wall ms, card busy ms)."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    wall, _dev, busy = profiled(fn)
+    return sorted(ts)[reps // 2] * 1e3, wall, busy
+
+
+def _grouped_registers(db, sql: str, table):
+    """The u8 HLL registers the query path builds for ``sql`` (its grouped
+    partial with ``final=False``, the streaming form)."""
+    from warpdb_tpu_torch.engine import group_exec
+    from warpdb_tpu_torch.engine.executor import _bind_query_strings
+    from warpdb_tpu_torch.frontend import parse_query_text
+    from warpdb_tpu_torch.frontend.ast import unalias
+
+    q = _bind_query_strings(parse_query_text(sql), table)
+    items = [unalias(s) for s in q.select_list]
+    plan = group_exec._grouped_plan(q, items, table=table)
+    res = group_exec._grouped_partials(q, table, plan, final=False)
+    (spec,) = plan["cd_specs"]
+    return res.dcounts[spec.key]
+
+
+def _check_hll(what: str, got_est, model_regs, exact, got_regs=None,
+               rel: float = 0.05) -> str:
+    """Registers equal bit for bit, the estimate equal to the NumPy
+    estimator over them (rtol 1e-5) and within ``rel`` of the exact
+    count."""
+    from warpdb_tpu_torch.ops.hll import hll_estimate_np
+
+    if got_regs is not None and not np.array_equal(
+            np.asarray(got_regs, np.int32), model_regs):
+        raise AssertionError(f"{what}: registers differ from the NumPy model")
+    got_est = np.asarray(got_est, np.float64)
+    np.testing.assert_allclose(got_est, hll_estimate_np(model_regs),
+                               rtol=1e-5, err_msg=what)
+    err = np.abs(got_est - exact) / np.maximum(exact, 1)
+    if err.max() > rel:
+        raise AssertionError(f"{what}: {err.max()!r} from the exact count")
+    return (f"registers equal to the NumPy model, estimate within rtol 1e-5 "
+            f"of its estimator and {float(err.max())!r} of the exact count")
+
+
+def _read_capsule(arr_c, schema_c):
+    """The exported ``(ArrowArray, ArrowSchema)`` structs behind two
+    capsules, through the module's ctypes layouts."""
+    from warpdb_tpu_torch.api import _capsule_address
+    from warpdb_tpu_torch.interchange.arrow_export import (
+        ArrowArrayStruct,
+        ArrowSchemaStruct,
+    )
+
+    return (ArrowArrayStruct.from_address(_capsule_address(arr_c)),
+            ArrowSchemaStruct.from_address(_capsule_address(schema_c)))
+
+
+def _f32_buffer(arr) -> np.ndarray:
+    """A NumPy view of a float column's data buffer (no copy)."""
+    import ctypes
+
+    buf = (ctypes.c_float * arr.length).from_address(arr.buffers[1])
+    return np.ctypeslib.as_array(buf)
+
+
+def _release(arr) -> None:
+    """Call the exporter's release callback, as a consumer would."""
+    import ctypes
+
+    arr.release(ctypes.pointer(arr))
+
+
+SURFACE_HTTP = [
+    "SELECT quantity, SUM(price) AS s FROM t GROUP BY quantity",
+    "SELECT price FROM t ORDER BY price DESC LIMIT 5",
+    "SELECT k, COUNT(*) AS n FROM t WHERE price > 99.9 GROUP BY k "
+    "ORDER BY n DESC, k ASC LIMIT 10",
+    "SELECT quantity, APPROX_COUNT_DISTINCT(k) AS d FROM t GROUP BY quantity",
+]
+
+
+def phase_surfaces(db, data: dict, host, tdb, tables: dict, kernels: dict,
+                   name: str) -> dict:
+    """APPROX_COUNT_DISTINCT, STRING_AGG and the result surfaces (Arrow
+    export, EXPLAIN ANALYZE, DDL, DB-API, HTTP server, CLI) at full size:
+    bench.py's table ``db`` and the TPC-H tables of ``tdb``.  Returns the
+    kernel launches of the phase (counters from 0)."""
+    import os
+    import threading
+    import urllib.request
+
+    import warpdb_tpu_torch.dbapi as dbapi
+    from warpdb_tpu_torch.errors import ValidationError
+    from warpdb_tpu_torch.interchange import arrow_export
+    from warpdb_tpu_torch.ops.hll import hll_grouped_registers
+    from warpdb_tpu_torch.ops.sort import float_sort_key
+    from warpdb_tpu_torch.serve import QueryServer, _jsonable
+
+    for fn in kernels.values():
+        fn.launches = 0
+    p, q, k = data["price"], data["quantity"], data["k"]
+    qi = q.astype(np.int64)
+
+    # HLL over bench.py's table: 32 groups, the global form, 65536 groups
+    # (the exact route).
+    t0 = time.perf_counter()
+    sql = "SELECT APPROX_COUNT_DISTINCT(k) FROM t GROUP BY quantity"
+    got = db.query_sql(sql)
+    regs = _grouped_registers(db, sql, db.table)
+    t_model = time.perf_counter()
+    pg, pk = np_distinct_pairs(qi, k, KEY_SLOTS)
+    model = np_hll_registers(pg, pk, GROUP_SLOTS)
+    t_model = time.perf_counter() - t_model
+    log(f"surfaces hll_k_by_quantity: {_check_hll('hll_k_by_quantity', got, model, np_distinct_counts(pg), regs)} — {sql}")
+    sql = "SELECT APPROX_COUNT_DISTINCT(price) FROM t"
+    got = db.query_sql(sql)
+    pd_ = db.table.row_columns()["price"]
+    seg0 = torch.zeros(ROWS, dtype=torch.int64, device=pd_.device)
+    regs = hll_grouped_registers(seg0, float_sort_key(pd_), None, 1)
+    t1 = time.perf_counter()
+    pg, pk = np_distinct_pairs(np.zeros(ROWS, np.int64), p)
+    model = np_hll_registers(pg, pk, 1)
+    t_model += time.perf_counter() - t1
+    exact = np.float64([pk.shape[0]])
+    log(f"surfaces hll_price_global: {_check_hll('hll_price_global', got, model, exact, regs.cpu().numpy())} — {sql}")
+    sql = "SELECT APPROX_COUNT_DISTINCT(price) FROM t GROUP BY k"
+    got = np.asarray(db.query_sql(sql), np.float64)
+    t1 = time.perf_counter()
+    want = np_distinct_counts(np_distinct_pairs(k, p)[0])
+    t_model += time.perf_counter() - t1
+    np.testing.assert_array_equal(got, want, err_msg="hll_price_by_k")
+    log(f"surfaces hll_price_by_k: {got.shape[0]} groups, the exact route: "
+        f"equal to NumPy's distinct counts — {sql}")
+    log(f"surfaces hll checks: {time.perf_counter() - t0!r} s, the NumPy "
+        f"models {t_model!r} s of it")
+    # The register build at the main path's shape (2^25 rows, 32 groups):
+    # int64 group ids and keys in, the table out.
+    seg = torch.from_numpy(qi).to(pd_.device)
+    skey = float_sort_key(db.table.row_columns()["k"])
+    hll_ms = cuda_ms(lambda: hll_grouped_registers(seg, skey, None, 32))
+    hll_bound = bound_ms(ROWS * 16 + 32 * 4096 * 4)
+    del seg, skey, seg0, regs
+    q_hll = "SELECT APPROX_COUNT_DISTINCT(k) FROM t GROUP BY quantity"
+    hll_wall, hll_prof, hll_busy = wall_busy(lambda: db.query_sql(q_hll))
+    log(f"surfaces timing hll_registers n={ROWS} groups=32: CUDA events "
+        f"{hll_ms!r} ms, bound {hll_bound!r} ms = {100 * hll_bound / hll_ms!r}% "
+        f"[{name}]")
+    log(f"surfaces timing hll_k_by_quantity: median {hll_wall!r} ms over 5 "
+        f"warm runs; profiled wall {hll_prof!r} ms, card busy {hll_busy!r} ms "
+        f"[{name}]")
+
+    # TPC-H at 2^22 lineitem rows: HLL per supplier, STRING_AGG per customer.
+    li, od = tables["lineitem"], tables["orders"]
+    sql = ("SELECT l_suppkey, APPROX_COUNT_DISTINCT(l_partkey) FROM lineitem "
+           "GROUP BY l_suppkey")
+    got = tdb.query_sql_table(sql)
+    supp = li["l_suppkey"].astype(np.int64)
+    uniq, gid = np.unique(supp, return_inverse=True)
+    if not np.array_equal(np.asarray(got["l_suppkey"]), uniq):
+        raise AssertionError("tpch_hll: supplier keys differ")
+    regs = _grouped_registers(tdb, sql, tdb._catalog["lineitem"])
+    pg, pk = np_distinct_pairs(gid, li["l_partkey"])
+    model = np_hll_registers(pg, pk, uniq.shape[0])
+    exact = np_distinct_counts(pg)
+    est = list(got.values())[1]
+    log(f"surfaces tpch_hll ({uniq.shape[0]} suppliers): "
+        f"{_check_hll('tpch_hll', est, model, exact, regs, rel=0.082)} — {sql}")
+    sql = ("SELECT o_custkey, STRING_AGG(o_orderpriority, ',') FROM orders "
+           "GROUP BY o_custkey")
+    got = tdb.query_sql_table(sql)
+    cust = od["o_custkey"].astype(np.int64)
+    prio = np.asarray(od["o_orderpriority"]).astype(str)
+    order = np.lexsort((prio, cust))
+    keys, starts = np.unique(cust[order], return_index=True)
+    pieces = np.split(prio[order], starts[1:])
+    want = [",".join(x) for x in pieces]
+    if (not np.array_equal(np.asarray(got["o_custkey"]), keys)
+            or list(got.values())[1] != want):
+        raise AssertionError("tpch_string_agg: differs from the Python model")
+    sa_wall, sa_prof, sa_busy = wall_busy(lambda: tdb.query_sql_table(sql))
+    log(f"surfaces tpch_string_agg: {keys.shape[0]} groups over "
+        f"{cust.shape[0]} orders, equal to the Python model — {sql}")
+    log(f"surfaces timing tpch_string_agg: median {sa_wall!r} ms over 5 warm "
+        f"runs; profiled wall {sa_prof!r} ms, card busy {sa_busy!r} ms, host "
+        f"{sa_prof - (sa_busy or 0.0)!r} ms [{name}]")
+
+    # Arrow: the expression result at 2^25 rows, in process memory and in
+    # POSIX shared memory, read back through the module's ctypes structs.
+    want = db.query_np("price * quantity")
+    arr, schema = _read_capsule(*db.query_arrow("price * quantity"))
+    if (schema.format != b"f" or arr.length != ROWS or arr.n_buffers != 2
+            or _f32_buffer(arr).tobytes() != want.tobytes()):
+        raise AssertionError("arrow: exported column differs from query_np")
+    _release(arr)
+    shm = os.statvfs("/dev/shm")
+    shm_rows = ROWS if shm.f_bavail * shm.f_frsize > ROWS * 4 * 2 else 1 << 20
+    sdb = db if shm_rows == ROWS else type(db)(
+        type(host).from_dict({c: v[:shm_rows] for c, v in data.items()}),
+        device=db.device)
+    arr_c, schema_c = sdb.query_arrow("price * quantity", shared_memory=True)
+    shm_path = arrow_export.shared_memory_path(arr_c)
+    if shm_path is None:
+        raise AssertionError("arrow shm: the export reports no segment")
+    arr, _schema = _read_capsule(arr_c, schema_c)
+    with open(shm_path, "rb") as f:
+        raw = f.read(shm_rows * 4)
+    if raw != want[:shm_rows].tobytes() or _f32_buffer(arr).tobytes() != raw:
+        raise AssertionError(f"arrow shm: {shm_path} differs")
+    del raw
+    _release(arr)
+    if os.path.exists(shm_path):
+        raise AssertionError(f"arrow shm: release left {shm_path}")
+    log(f"surfaces arrow: query_arrow n={ROWS} equal to query_np byte for "
+        f"byte; shared_memory n={shm_rows} in {shm_path} (/dev/shm free "
+        f"{shm.f_bavail * shm.f_frsize!r} bytes) equal, unlinked on release")
+    sql = ("SELECT o_orderpriority, COUNT(*) AS n FROM orders "
+           "GROUP BY o_orderpriority")
+    parent, pschema = _read_capsule(*tdb.query_arrow_table(sql))
+    fmts = [pschema.children[i].contents.format
+            for i in range(pschema.n_children)]
+    if pschema.format != b"+s" or fmts != [b"u", b"f"] or parent.length != 5:
+        raise AssertionError(f"arrow table: {pschema.format} {fmts} "
+                             f"{parent.length}")
+    _release(parent)
+    ts = {"query": [], "query_np": [], "query_arrow": []}
+    for _ in range(5):
+        for fn, call in (("query", db.query), ("query_np", db.query_np),
+                         ("query_arrow", db.query_arrow)):
+            t0 = time.perf_counter()
+            out = call("price * quantity")
+            ts[fn].append((time.perf_counter() - t0) * 1e3)
+            if fn == "query_arrow":
+                _release(_read_capsule(*out)[0])
+            del out
+    log("surfaces arrow table: struct array of utf8 + float32 (5 rows); "
+        f"timing price * quantity n={ROWS} (host clock, median of 5, in "
+        "turns): " + ", ".join(f"{fn} {sorted(v)[2]!r} ms"
+                               for fn, v in ts.items()) + f" [{name}]")
+
+    # EXPLAIN ANALYZE: the trailer names the kernel each query ran.
+    for qname, kname, kfn in (("group_sum_k", "K2 group_hist", "group_hist"),
+                              ("orderby_limit", "K1 topk", "topk")):
+        sql = dict(SQL_QUERIES)[qname]
+        before = kernels[kfn].launches
+        plan = db.explain(sql, analyze=True)
+        ops = [ln for ln in plan.splitlines() if "operators:" in ln]
+        if not ops or kname not in ops[0] or kernels[kfn].launches <= before:
+            raise AssertionError(f"explain {qname}: {plan}")
+        log(f"surfaces explain {qname}: " + " | ".join(
+            ln.strip() for ln in plan.splitlines()
+            if "strategy:" in ln or "order by:" in ln or "operators:" in ln))
+
+    # DDL: CREATE a K2 aggregate table, query it, DROP it.
+    before = kernels["group_hist"].launches
+    db.query_sql("CREATE TABLE agg_k AS SELECT k, SUM(price) AS s FROM t "
+                 "GROUP BY k")
+    if kernels["group_hist"].launches <= before:
+        raise AssertionError("ddl: CREATE TABLE did not launch K2")
+    got = db.query_sql_table("SELECT k, s FROM agg_k WHERE k < 100")
+    ki = k.astype(np.int64)
+    sums_k = np.bincount(ki, weights=p.astype(np.float64), minlength=KEY_SLOTS)
+    occ = np.flatnonzero(np.bincount(ki, minlength=KEY_SLOTS)[:100])
+    np.testing.assert_array_equal(got["k"], occ.astype(np.float64))
+    np.testing.assert_allclose(got["s"], sums_k[occ], rtol=SUM_RTOL)
+    if db._catalog["agg_k"].device != db.device:
+        raise AssertionError("ddl: agg_k is not on the facade's device")
+    db.query_sql("DROP TABLE agg_k")
+    try:
+        db.query_sql("SELECT s FROM agg_k")
+    except ValidationError:
+        pass
+    else:
+        raise AssertionError("ddl: agg_k still answers after DROP")
+    log("surfaces ddl: CREATE TABLE agg_k (K2), a query over it against "
+        "NumPy, DROP TABLE agg_k")
+
+    # DB-API over the same host table, uploaded again.
+    sql = "SELECT quantity, SUM(price) AS s, COUNT(*) AS n FROM t GROUP BY quantity"
+    conn = dbapi.connect(host, device=db.device.type)
+    rows = conn.cursor().execute(sql).fetchall()
+    conn.close()
+    want = db.query_sql_table(sql)
+    # Keys and counts exactly; f32 sums add in a run-dependent order.
+    got = np.asarray(rows, np.float64).T
+    np.testing.assert_array_equal(got[[0, 2]], np.asarray(
+        [want["quantity"], want["n"]], np.float64), err_msg="dbapi")
+    np.testing.assert_allclose(got[1], want["s"], rtol=SUM_RTOL,
+                               err_msg="dbapi")
+    log(f"surfaces dbapi: {len(rows)} rows equal to query_sql_table — {sql}")
+
+    # HTTP: 20 POST /query (10 one at a time, 10 from two threads at once).
+    srv = QueryServer(db, port=0).start()
+    want = {s: {c: _jsonable(v) for c, v in db.query_sql_table(s).items()}
+            for s in SURFACE_HTTP}
+    lat: list = []
+    errors: list = []
+
+    def post(sql):
+        body = json.dumps({"sql": sql}).encode()
+        req = urllib.request.Request(
+            f"http://{srv.host}:{srv.port}/query", data=body,
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out = json.loads(r.read())["columns"]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        # Keys, counts and estimates exactly; f32 sums add in a
+        # run-dependent order on the card.
+        if list(out) != list(want[sql]) or not all(
+                np.allclose(np.asarray(out[c], np.float64),
+                            np.asarray(want[sql][c], np.float64),
+                            rtol=SUM_RTOL if sql == SURFACE_HTTP[0] else 0,
+                            atol=0)
+                for c in out):
+            errors.append(sql)
+
+    def worker(sqls):
+        try:
+            for s in sqls:
+                post(s)
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(repr(e))
+
+    try:
+        for i in range(10):
+            post(SURFACE_HTTP[i % len(SURFACE_HTTP)])
+        threads = [threading.Thread(target=worker, args=(
+            [SURFACE_HTTP[(i + j) % len(SURFACE_HTTP)] for i in range(5)],))
+            for j in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or errors or len(lat) != 20:
+            raise AssertionError(f"http: {errors} ({len(lat)} answers)")
+        with urllib.request.urlopen(
+                f"http://{srv.host}:{srv.port}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(
+                f"http://{srv.host}:{srv.port}/schema", timeout=30) as r:
+            schema = json.loads(r.read())
+    finally:
+        srv.shutdown()
+    if not health["ok"] or health["rows"] != ROWS or sorted(
+            schema["columns"]) != ["k", "price", "quantity"]:
+        raise AssertionError(f"http: {health} {schema}")
+    lat.sort()
+    log(f"surfaces http: 20 POST /query equal to query_sql_table (10 "
+        f"sequential, 10 from two threads at once), /healthz and /schema; "
+        f"latency median {lat[10]!r} ms, p90 {lat[17]!r} ms [{name}]")
+
+    # CLI, as a user runs it.
+    root = pathlib.Path(__file__).resolve().parent
+    base = [sys.executable, "-m", "warpdb_tpu_torch",
+            "price * quantity WHERE price > 10", "data/test.csv",
+            "--device", db.device.type]
+    for extra, need in (([], ["Result[0] = 31.5", "Result[3] = 150.0"]),
+                        (["--explain", "--analyze"],
+                         ["Expression plan", "Execution (measured):"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, cwd=root, capture_output=True,
+                              text=True, timeout=300)
+        if proc.returncode != 0 or any(s not in proc.stdout for s in need):
+            raise AssertionError(f"cli {extra}: rc {proc.returncode}\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        log(f"surfaces cli {' '.join(extra) or '(query)'}: rc 0 in "
+            f"{time.perf_counter() - t0!r} s, lines {need} present")
+
+    launches = {kk: fn.launches for kk, fn in kernels.items()}
+    for kk in ("topk", "group_hist"):
+        if launches[kk] <= 0:
+            raise AssertionError(f"surfaces: kernel {kk} was not launched")
+    log(f"surfaces launches: {launches}")
+    return launches
 
 
 def phase_profile(run, queries, name: str) -> None:
     """One profiled warm run per slice query (torch.profiler, CPU and
     CUDA activities): profiled wall, card-busy time (the union of the
     device intervals), idle share and the three largest device items."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     log(f"profile on {name} (profiled wall exceeds the unprofiled one):")
     for kind, n, q in queries:
         run(kind, q)
         torch.cuda.synchronize()
-        # The tracer now and then returns a run without its device events;
-        # such a run is profiled again, up to three times in all.
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
-                t0 = time.perf_counter()
-                run(kind, q)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            dev = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-            if dev:
-                break
-            log(f"  profile {n}: no device activity traced, run again")
-        else:
+        wall, dev, busy = profiled(lambda: run(kind, q))
+        if not dev:
             raise AssertionError(f"profile {n}: no device activity traced")
-        busy, cur = 0.0, None
-        for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
-            if cur is None or s > cur[1]:
-                busy += 0.0 if cur is None else cur[1] - cur[0]
-                cur = [s, e]
-            else:
-                cur[1] = max(cur[1], e)
-        busy = (busy + cur[1] - cur[0]) / 1e3
         by: dict = {}
         for e in dev:
             by[e.name[:50]] = (by.get(e.name[:50], 0.0)
@@ -1177,7 +1626,8 @@ def main(argv: list) -> int:
 
     t0 = time.perf_counter()
     data = make_table()
-    db = WarpDB(HostTable.from_dict(data), device="cuda")
+    host = HostTable.from_dict(data)
+    db = WarpDB(host, device="cuda")
     want = expected(data)
     log(f"table: {ROWS} rows on {db.device}, set-up {time.perf_counter() - t0:.3f} s")
 
@@ -1280,10 +1730,17 @@ def main(argv: list) -> int:
     for k, c in win_launches.items():
         launches[k] += c
 
-    tpch_launches, tpch_run, tpch_queries = phase_tpch(WarpDB, HostTable,
-                                                       kernels, name)
+    tpch_launches, tpch_run, tpch_queries, tdb, ttables = phase_tpch(
+        WarpDB, HostTable, kernels, name)
     for k, c in tpch_launches.items():
         launches[k] += c
+
+    t0 = time.perf_counter()
+    surf_launches = phase_surfaces(db, data, host, tdb, ttables, kernels,
+                                   name)
+    for k, c in surf_launches.items():
+        launches[k] += c
+    log(f"surfaces phase: {time.perf_counter() - t0!r} s")
 
     if profile:
         phase_profile(run, queries + join_queries, name)

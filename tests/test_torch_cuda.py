@@ -8,6 +8,8 @@ repository's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -649,3 +651,97 @@ def test_materialised_tables_on_the_card(tpch_dbs):
     for t in tables:
         assert t.device.type == "cuda"
         assert all(c.device.type == "cuda" for c in t.columns.values())
+
+
+# --- APPROX_COUNT_DISTINCT, STRING_AGG and the result surfaces -----------
+
+def _surface_data(n: int = 1 << 20) -> dict:
+    rng = np.random.default_rng(31)
+    price = rng.uniform(0, 100, n).astype(np.float32)
+    price[::1001] = np.nan
+    price[5::997] = -0.0
+    return {
+        "price": price,
+        "quantity": rng.integers(0, 32, n).astype(np.float32),
+        "k": rng.integers(0, 1 << 16, n).astype(np.float32),
+        "tag": np.array([f"t{i:03d}" for i in range(300)])[
+            rng.integers(0, 300, n)],
+    }
+
+
+@pytest.fixture(scope="module")
+def surface_dbs(cuda):
+    data = _surface_data()
+    return (WarpDB(HostTable.from_dict(data), device=cuda),
+            WarpDB(HostTable.from_dict(data), device="cpu"))
+
+
+def test_hll_registers_on_card_match_cpu(cuda):
+    from warpdb_tpu_torch.ops.hll import hll_estimate, hll_grouped_registers
+    from warpdb_tpu_torch.ops.sort import float_sort_key
+
+    data = _surface_data()
+    vals = torch.from_numpy(data["price"])
+    seg = torch.from_numpy(data["quantity"].astype(np.int64))
+    valid = torch.from_numpy(data["k"] < 50_000)
+    args = (seg, float_sort_key(vals), valid, 32)
+    got = hll_grouped_registers(*(a.to(cuda) if isinstance(a, torch.Tensor)
+                                  else a for a in args))
+    want = hll_grouped_registers(*args)
+    assert torch.equal(got.cpu(), want)
+    torch.testing.assert_close(hll_estimate(got).cpu(), hll_estimate(want),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT APPROX_COUNT_DISTINCT(price) FROM t",
+    "SELECT quantity, APPROX_COUNT_DISTINCT(k) FROM t GROUP BY quantity",
+    "SELECT APPROX_COUNT_DISTINCT(price) FROM t GROUP BY k",
+    "SELECT quantity, APPROX_COUNT_DISTINCT(k) FROM t WHERE price > 1000 "
+    "GROUP BY quantity",
+    "SELECT quantity, STRING_AGG(tag, ',') FROM t WHERE price > 99.9 "
+    "GROUP BY quantity",
+])
+def test_surface_aggregates_on_card_match_cpu(surface_dbs, sql):
+    gpu, cpu = surface_dbs
+    got, want = gpu.query_sql_table(sql), cpu.query_sql_table(sql)
+    assert list(got) == list(want)
+    for col in want:
+        if want[col] and isinstance(want[col][0], str):
+            assert got[col] == want[col]
+        else:
+            np.testing.assert_allclose(got[col], want[col], rtol=1e-5)
+
+
+def test_arrow_export_on_card_matches_cpu(surface_dbs):
+    from warpdb_tpu_torch.api import _capsule_address
+    from warpdb_tpu_torch.interchange.arrow_export import ArrowArrayStruct
+
+    gpu, cpu = surface_dbs
+    arrays = []
+    for db in (gpu, cpu):
+        arr_c, _schema_c = db.query_arrow("price * quantity WHERE k > 10")
+        arr = ArrowArrayStruct.from_address(_capsule_address(arr_c))
+        buf = (ctypes.c_float * arr.length).from_address(arr.buffers[1])
+        arrays.append(np.ctypeslib.as_array(buf).copy())
+        arr.release(ctypes.pointer(arr))
+    # Equal values; a NaN's sign and payload may differ between the two.
+    np.testing.assert_array_equal(arrays[0], arrays[1])
+
+
+@pytest.mark.parametrize("sql,k2,k1", [
+    ("SELECT k, SUM(price) FROM t GROUP BY k", True, False),
+    ("SELECT k, MIN(price) FROM t GROUP BY k", False, False),
+    ("SELECT quantity, SUM(price) FROM t GROUP BY quantity", False, False),
+    ("SELECT k FROM t ORDER BY k DESC LIMIT 5", False, True),
+])
+def test_explain_names_the_kernels_that_launch(surface_dbs, sql, k2, k1):
+    gpu, _cpu = surface_dbs
+    before = (group_kernel.group_counts_sums.launches,
+              topk_kernel.topk_candidates.launches)
+    plan = gpu.explain(sql, analyze=True)
+    torch.cuda.synchronize()
+    ran = (group_kernel.group_counts_sums.launches > before[0],
+           topk_kernel.topk_candidates.launches > before[1])
+    assert ("K2 shared-memory" in plan, "K1 top-k kernel" in plan) == (k2, k1)
+    assert ran == (k2, k1), plan

@@ -147,3 +147,85 @@ def test_dictionaries_match_reference():
     codes = port_codes["t"][:20]
     assert strings.decode_codes(codes, port_vocab) == (
         ref_strings.decode_codes(codes, ref_vocab))
+
+
+def test_arrow_struct_layouts_match_reference():
+    import ctypes
+
+    from warpdb_tpu.interchange import arrow_export as ref_ax
+    from warpdb_tpu_torch.interchange import arrow_export as ax
+
+    for name in ("ArrowSchemaStruct", "ArrowArrayStruct"):
+        port, ref = getattr(ax, name), getattr(ref_ax, name)
+        assert port is not ref
+        assert ctypes.sizeof(port) == ctypes.sizeof(ref)
+        assert [(f, getattr(port, f).offset) for f, _t in port._fields_] == [
+            (f, getattr(ref, f).offset) for f, _t in ref._fields_]
+    assert ax.SHM_PREFIX == ref_ax.SHM_NAME
+
+
+def _exported(mod, export, *args) -> list:
+    """Every field of an exported struct array and its children, and the
+    bytes of each buffer, read back through ``mod``'s layouts."""
+    import ctypes
+
+    from warpdb_tpu_torch.api import _capsule_address
+
+    arr_c, schema_c = export(*args)
+    arr = mod.ArrowArrayStruct.from_address(_capsule_address(arr_c))
+    schema = mod.ArrowSchemaStruct.from_address(_capsule_address(schema_c))
+
+    def read(a, s, lengths):
+        out = [s.format, s.name, s.flags, a.length, a.null_count, a.offset,
+               a.n_buffers, a.n_children]
+        for i, nbytes in enumerate(lengths):
+            ptr = a.buffers[i + 1]
+            out.append(ctypes.string_at(ptr, nbytes) if nbytes else b"")
+        return out
+
+    if schema.n_children == 0:
+        got = read(arr, schema, [4 * arr.length])
+    else:
+        got = [schema.format, arr.length]
+        for i in range(schema.n_children):
+            ca, cs = arr.children[i].contents, schema.children[i].contents
+            if cs.format == b"u":
+                offs = ctypes.string_at(ca.buffers[1], 4 * (ca.length + 1))
+                end = int(np.frombuffer(offs, np.int32)[-1])
+                got += read(ca, cs, [4 * (ca.length + 1), end])
+            else:
+                got += read(ca, cs, [4 * ca.length])
+    arr.release(ctypes.pointer(arr))
+    return got
+
+
+@pytest.mark.parametrize("shm", [False, True])
+def test_arrow_export_matches_reference(shm, monkeypatch):
+    import os
+
+    from warpdb_tpu.interchange import arrow_export as ref_ax
+    from warpdb_tpu_torch.interchange import arrow_export as ax
+
+    # The reference's one fixed segment name is shared by every process;
+    # give its export here a name of this process's own.
+    monkeypatch.setattr(ref_ax, "SHM_NAME",
+                        f"/warpdb_result_reference_{os.getpid()}")
+    values = np.random.default_rng(4).normal(0, 1, 1001).astype(np.float32)
+    values[::7] = np.nan
+    got = _exported(ax, ax.export_to_arrow_capsules, values, shm)
+    want = _exported(ref_ax, ref_ax.export_to_arrow_capsules, values, shm)
+    assert got == want
+
+
+def test_arrow_table_export_matches_reference():
+    from warpdb_tpu.interchange import arrow_export as ref_ax
+    from warpdb_tpu_torch.interchange import arrow_export as ax
+
+    cols = {"f": np.float32([1.5, -0.0, np.inf]),
+            "s": ["ä", "", "long string"],
+            "empty_f": np.zeros(3, np.float32)}
+    assert _exported(ax, ax.export_table_to_arrow_capsules, cols) == (
+        _exported(ref_ax, ref_ax.export_table_to_arrow_capsules, cols))
+    empty = {"s": [], "f": np.zeros(0, np.float32)}
+    assert _exported(ax, ax.export_table_to_arrow_capsules, empty) == (
+        _exported(ref_ax, ref_ax.export_table_to_arrow_capsules, empty))

@@ -62,6 +62,54 @@ def _run_blocked(*modules: str) -> None:
     assert proc.stdout.strip().endswith("ok")
 
 
+_SURFACES = """
+import sys
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+from warpdb_tpu_torch import WarpDB
+from warpdb_tpu_torch.__main__ import main
+import warpdb_tpu_torch.dbapi as dbapi
+from warpdb_tpu_torch.serve import QueryServer
+from warpdb_tpu_torch.utils import metrics
+db = WarpDB("data/test.csv", device="cpu")
+assert db.query_sql("SELECT APPROX_COUNT_DISTINCT(price) FROM test")[0] > 3.9
+assert db.query_sql("SELECT STRING_AGG(price, ',') FROM test "
+                    "GROUP BY quantity") == ["15.25", "10.5", "20", "30"]
+assert "Execution (measured):" in db.explain(
+    "SELECT SUM(price) FROM test GROUP BY quantity", analyze=True)
+assert metrics.last().output_rows == 4
+db.query_arrow("price * quantity")
+db.query_arrow_table("SELECT quantity, SUM(price) FROM test GROUP BY quantity")
+db.query_sql("CREATE TABLE c AS SELECT price FROM test WHERE price > 16")
+assert db.query_sql("SELECT price FROM c") == [20.0, 30.0]
+db.query_sql("DROP TABLE c")
+with dbapi.connect("data/test.csv", device="cpu") as conn:
+    assert len(conn.cursor().execute("SELECT price FROM test").fetchall()) == 4
+srv = QueryServer(db, port=0).start()
+srv.shutdown()
+assert main(["price", "data/test.csv", "--device", "cpu"]) == 0
+for name in BLOCKED:
+    assert sys.modules[name] is None
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("blocked", [("jax", "warpdb_tpu"),
+                                     ("jax", "warpdb_tpu", "pyarrow")])
+def test_surfaces_run_with_jax_and_warpdb_tpu_blocked(blocked):
+    """APPROX_COUNT_DISTINCT, STRING_AGG, EXPLAIN ANALYZE, metrics, the
+    Arrow export, DDL, DB-API, the HTTP server and the CLI in a fresh
+    interpreter with JAX, ``warpdb_tpu`` (and pyarrow: the card's machine
+    has none) blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", f"BLOCKED = {blocked!r}\n" + _SURFACES],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_port_runs_with_jax_blocked():
     _run_blocked("jax")
 

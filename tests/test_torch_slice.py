@@ -261,13 +261,11 @@ def test_midrange_inf_values_match_reference():
           PortDB(HostTable.from_dict(data), device="cpu").query_sql(q), q)
 
 
-# Windows, QUALIFY and grouping sets answer now: their former refusals
-# are differential cases in test_torch_window.py.
+# Windows, QUALIFY, grouping sets, STRING_AGG, APPROX_COUNT_DISTINCT and
+# DDL answer now: their former refusals are differential cases in
+# test_torch_window.py, test_torch_hll.py and test_torch_surfaces.py.
 UNSUPPORTED = [
     ("SELECT a.price FROM t a LEFT JOIN t b ON a.ki < b.ki", "JOIN"),
-    ("SELECT STRING_AGG(s, ',') FROM t GROUP BY quantity", "STRING_AGG"),
-    ("SELECT APPROX_COUNT_DISTINCT(price) FROM t", "APPROX_COUNT_DISTINCT"),
-    ("CREATE TABLE x AS SELECT price FROM t", "CREATE"),
 ]
 
 

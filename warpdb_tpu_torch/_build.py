@@ -21,7 +21,8 @@ from pathlib import Path
 
 from .errors import ExecutionError
 
-__all__ = ["KERNELS", "build_all", "load", "build_dir", "source_path"]
+__all__ = ["KERNELS", "build_all", "load", "note_launch", "build_dir",
+           "source_path"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -59,6 +60,8 @@ KERNELS = {
 
 _lock = threading.Lock()
 _loaded: dict = {}
+# Kernels that ``load`` built with nvcc and no launch has reported yet.
+_fresh: set = set()
 
 
 def build_dir() -> Path:
@@ -114,6 +117,8 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
+        if not _library_path(name).exists():
+            _fresh.add(name)
         path = _compile(name)
         lib = ctypes.CDLL(str(path))
         for symbol, argtypes in KERNELS[name].items():
@@ -122,6 +127,18 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded[name] = lib
         return lib
+
+
+def note_launch(name: str, operator: str) -> None:
+    """Record a launch of kernel ``name`` as ``operator`` in the running
+    query's operator trace: not a cache hit when ``load`` built the kernel
+    with nvcc for it."""
+    from .utils.metrics import note_operator
+
+    with _lock:
+        built = name in _fresh
+        _fresh.discard(name)
+    note_operator(operator, not built)
 
 
 def build_all() -> dict:

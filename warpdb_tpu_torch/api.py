@@ -1,14 +1,18 @@
 """Public facade of the port — the ``WarpDB`` class.
 
-Counterpart of ``warpdb_tpu/api.py`` for the port's slice: ``query`` /
-``query_np`` (fused filter + projection), ``query_sql`` (the first
-select item) and ``query_sql_table`` (every select item, by name): SELECT
-with JOINs over registered tables, subqueries, derived tables, WHERE,
-GROUP BY, aggregates, HAVING, DISTINCT, ORDER BY, LIMIT / OFFSET, plus
-the two features that resolve here, ``WITH`` (CTEs) and UNION / EXCEPT /
-INTERSECT [ALL].  The device is explicit: ``device=None`` means
-``"cuda"``, and a missing CUDA device is an error, never a silent run on
-the CPU.  ``device="cpu"`` runs the kernels' plain PyTorch versions.
+Counterpart of ``warpdb_tpu/api.py``: ``query`` / ``query_np`` (fused
+filter + projection), ``query_sql`` (the first select item) and
+``query_sql_table`` (every select item, by name): SELECT with JOINs over
+registered tables, subqueries, derived tables, WHERE, GROUP BY,
+aggregates, HAVING, DISTINCT, ORDER BY, LIMIT / OFFSET, plus what
+resolves here: ``WITH`` (CTEs), UNION / EXCEPT / INTERSECT [ALL] and
+CREATE / DROP TABLE|VIEW.  ``explain`` describes the plan (and with
+``analyze`` runs it); ``query_arrow*`` and ``query_record_batch`` export
+results through the Arrow C Data Interface.  Each query records its
+metrics (``utils/metrics.py``).  The device is explicit: ``device=None``
+means ``"cuda"``, and a missing CUDA device is an error, never a silent
+run on the CPU.  ``device="cpu"`` runs the kernels' plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -43,7 +47,14 @@ from .storage.table import DeviceTable
 __all__ = ["WarpDB", "resolve_device", "decode_result_column"]
 
 _WHERE_SPLIT = re.compile(r"\bWHERE\b", re.IGNORECASE)
-_DDL = re.compile(r"^\s*(CREATE|DROP)\b", re.IGNORECASE)
+_DDL_CREATE = re.compile(
+    r"^\s*CREATE\s+(TABLE|VIEW)\s+([A-Za-z_]\w*)\s+AS\s+(.+)$",
+    re.IGNORECASE | re.DOTALL,
+)
+_DDL_DROP = re.compile(
+    r"^\s*DROP\s+(TABLE|VIEW)\s+(IF\s+EXISTS\s+)?([A-Za-z_]\w*)\s*;?\s*$",
+    re.IGNORECASE,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -94,23 +105,19 @@ def _column_vocab(node, table, catalog, joins):
     return vocab
 
 
-def decode_result_column(item, values: np.ndarray, table, catalog=None,
-                         joins=()) -> list:
-    """Decode dictionary codes back to strings (or wide ints) when the
-    select item is code-valued: a bare coded column, MIN/MAX of one, or a
-    string scalar function; other columns pass through as numbers.
-    ``table`` is the FROM relation; ``catalog`` and ``joins`` (the
-    statement's JOIN clauses) resolve columns of joined relations."""
+def _result_vocab(item, table, catalog, joins):
+    """``(node, vocab)``: the select item with a MIN/MAX unwrapped, and
+    the vocabulary its codes decode through when it is code-valued — a
+    bare coded column, MIN/MAX of one, or a string scalar function — else
+    None (a number column)."""
     from .frontend.ast import (
         Aggregation,
         AggregationType,
         CodeMap,
         FunctionCall,
         Variable,
-        unalias,
     )
     from .storage.strfuncs import is_string_func
-    from .storage.strings import decode_codes
     from .engine.executor import bind_strings
 
     node = unalias(item)
@@ -122,19 +129,46 @@ def decode_result_column(item, values: np.ndarray, table, catalog=None,
         try:
             cm = bind_strings(node, table)
         except WarpDBError:
-            cm = None
-        if isinstance(cm, CodeMap) and cm.out_vocab is not None:
-            vals = np.asarray(values, np.float64)
-            vals = np.where(np.isfinite(vals), vals, -1.0)
-            return decode_codes(vals, cm.out_vocab)
+            return node, None
+        return node, (cm.out_vocab if isinstance(cm, CodeMap) else None)
     if isinstance(node, Variable):
-        vals = np.asarray(values)
-        if vals.dtype.kind == "f" and not np.all(np.isfinite(vals)):
-            return vals.tolist()  # empty-aggregate sentinels
-        vocab = _column_vocab(node, table, catalog or {}, joins)
-        if vocab is not None:
-            return decode_codes(vals, vocab)
-    return np.asarray(values).tolist()
+        return node, _column_vocab(node, table, catalog or {}, joins)
+    return node, None
+
+
+def _is_string_item(item, table, catalog, joins) -> bool:
+    """Whether a select item's result column holds strings: STRING_AGG,
+    or an item that decodes through a string vocabulary."""
+    from .frontend.ast import Aggregation, AggregationType
+
+    node = unalias(item)
+    if (isinstance(node, Aggregation)
+            and node.agg is AggregationType.STRING_AGG):
+        return True
+    _node, vocab = _result_vocab(item, table, catalog, joins)
+    return vocab is not None and vocab.dtype.kind not in "iu"
+
+
+def decode_result_column(item, values: np.ndarray, table, catalog=None,
+                         joins=()) -> list:
+    """Decode dictionary codes back to strings (or wide ints) when the
+    select item is code-valued: a bare coded column, MIN/MAX of one, or a
+    string scalar function; other columns pass through as numbers.
+    ``table`` is the FROM relation; ``catalog`` and ``joins`` (the
+    statement's JOIN clauses) resolve columns of joined relations."""
+    from .frontend.ast import Variable
+    from .storage.strings import decode_codes
+
+    node, vocab = _result_vocab(item, table, catalog, joins)
+    if vocab is None:
+        return np.asarray(values).tolist()
+    vals = np.asarray(values)
+    if not isinstance(node, Variable):
+        vals = np.asarray(values, np.float64)
+        vals = np.where(np.isfinite(vals), vals, -1.0)
+    elif vals.dtype.kind == "f" and not np.all(np.isfinite(vals)):
+        return vals.tolist()  # empty-aggregate sentinels
+    return decode_codes(vals, vocab)
 
 
 class Catalog(dict):
@@ -230,6 +264,19 @@ class WarpDB:
             validate_expression(cond_ast, cols, {self._name})
         return expr_ast, cond_ast
 
+    def _bytes_scanned(self, *asts, table=None) -> int:
+        """Bytes of the (padded) columns the given ASTs reference."""
+        from .frontend import column_refs
+
+        table = self._table if table is None else table
+        names = set()
+        for ast in asts:
+            if ast is not None:
+                for ref in column_refs(ast):
+                    names.update((ref.name, ref.unqualified))
+        return sum(t.element_size() * t.shape[0]
+                   for name, t in table.columns.items() if name in names)
+
     def query(self, expr: str) -> list:
         """Evaluate ``"<expr> [WHERE <cond>]"`` → length-N list of
         float32 (rows failing the filter give 0.0)."""
@@ -238,9 +285,15 @@ class WarpDB:
     def query_np(self, expr: str) -> np.ndarray:
         """Like :meth:`query`, returning the NumPy array."""
         from .engine.executor import run_expression
+        from .utils.metrics import timed_query
 
         expr_ast, cond_ast = self._parse_expr_query(expr)
-        return run_expression(self._table, expr_ast, cond_ast)
+        with timed_query(expr, "expression", self._table.num_rows,
+                         self._bytes_scanned(expr_ast, cond_ast),
+                         self.device) as out_rows:
+            result = run_expression(self._table, expr_ast, cond_ast)
+            out_rows[0] = len(result)
+        return result
 
     # -- SQL path ----------------------------------------------------------
     def _base_table(self, ast, catalog):
@@ -343,20 +396,12 @@ class WarpDB:
         return catalog
 
     def _prepare_sql(self, sql: str):
-        """Parse, reject what the port does not run, resolve the CTEs and
-        validate.  Returns ``(ast without its CTEs, catalog)``."""
-        from .engine.executor import reject_unsupported
-
-        if _DDL.match(sql):
-            raise UnsupportedError(
-                "CREATE/DROP TABLE|VIEW is not supported by "
-                "warpdb_tpu_torch yet"
-            )
+        """Parse, resolve the CTEs and validate.  Returns ``(ast without
+        its CTEs, catalog)``."""
         try:
             ast = parse_query(tokenize(sql))
         except (ParseError, TokenizeError) as e:
             raise ParseError(f"Failed to parse SQL: {e}") from None
-        reject_unsupported(ast)
         catalog = self._resolve_ctes(ast)
         self._validate_sql(ast, catalog)
         if ast.ctes:
@@ -364,45 +409,123 @@ class WarpDB:
             ast.ctes = []  # resolved into ``catalog``
         return ast, catalog
 
-    def _decoded_columns(self, ast, base, catalog, result: dict) -> dict:
+    def _decoded_columns(self, ast, base, catalog, result: dict,
+                         string_names: Optional[set] = None) -> dict:
         """``{name: list}`` of a result, strings decoded through the
-        statement's namespace."""
+        statement's namespace.  ``string_names``, when given, gains the
+        names of the columns that hold strings (an empty one too)."""
         from .engine.executor import _resolve_alias_catalog, expand_stars_query
 
         dbase = self._decode_base(ast, base, catalog)
         catalog = _resolve_alias_catalog(ast, dbase, catalog)
         items = expand_stars_query(ast, dbase, catalog)
-        return {
-            name: decode_result_column(item, vals, dbase, catalog, ast.joins)
-            for item, (name, vals) in zip(items, result.items())
-        }
+        out = {}
+        for item, (name, vals) in zip(items, result.items()):
+            out[name] = decode_result_column(item, vals, dbase, catalog,
+                                             ast.joins)
+            if string_names is not None and _is_string_item(
+                    item, dbase, catalog, ast.joins):
+                string_names.add(name)
+        return out
+
+    def _sql_bytes_scanned(self, ast, base) -> int:
+        return self._bytes_scanned(
+            *ast.select_list, ast.where, ast.having,
+            *(t.expr for t in (ast.order_by.terms if ast.order_by else ())),
+            *(ast.group_by.keys if ast.group_by else ()),
+            table=base,
+        )
 
     def query_sql(self, sql: str) -> list:
         """Run one SELECT statement; returns the first select item's
-        values (strings decoded)."""
+        values (strings decoded).  A CREATE / DROP statement returns
+        ``[]``."""
         from .engine.executor import run_query
+        from .utils.metrics import timed_query
 
+        if self._maybe_ddl(sql) is not None:
+            return []
         ast, catalog = self._prepare_sql(sql)
         if ast.set_ops:
-            return list(next(iter(self._setop_table(ast, catalog).values()),
-                             []))
+            with timed_query(sql, "sql", self._table.num_rows, 0,
+                             self.device) as out_rows:
+                out = list(next(iter(self._setop_table(ast, catalog)
+                                     .values()), []))
+                out_rows[0] = len(out)
+            return out
         base = self._base_table(ast, catalog)
-        result = run_query(ast, base, catalog)
+        with timed_query(sql, "sql", base.num_rows,
+                         self._sql_bytes_scanned(ast, base),
+                         self.device) as out_rows:
+            result = run_query(ast, base, catalog)
+            out_rows[0] = len(result)
         first = {"": result}
         return next(iter(self._decoded_columns(ast, base, catalog,
                                                first).values()))
 
     def query_sql_table(self, sql: str) -> dict:
         """Run one SELECT statement; returns every select item as a named
-        column, ``{name: list}`` (strings decoded)."""
-        from .engine.executor import run_query_table
+        column, ``{name: list}`` (strings decoded).  A CREATE / DROP
+        statement returns ``{}``."""
+        return self._query_sql_table(sql)
 
+    def _query_sql_table(self, sql: str,
+                         string_names: Optional[set] = None) -> dict:
+        """:meth:`query_sql_table`; ``string_names`` as in
+        :meth:`_decoded_columns`."""
+        from .engine.executor import run_query_table
+        from .utils.metrics import timed_query
+
+        ddl = self._maybe_ddl(sql)
+        if ddl is not None:
+            return ddl
         ast, catalog = self._prepare_sql(sql)
         if ast.set_ops:
-            return self._setop_table(ast, catalog)
+            with timed_query(sql, "sql", self._table.num_rows, 0,
+                             self.device) as out_rows:
+                out = self._setop_table(ast, catalog)
+                out_rows[0] = len(next(iter(out.values()), []))
+            return out
         base = self._base_table(ast, catalog)
-        result = run_query_table(ast, base, catalog)
-        return self._decoded_columns(ast, base, catalog, result)
+        with timed_query(sql, "sql", base.num_rows,
+                         self._sql_bytes_scanned(ast, base),
+                         self.device) as out_rows:
+            result = run_query_table(ast, base, catalog)
+            out_rows[0] = len(next(iter(result.values()), []))
+        return self._decoded_columns(ast, base, catalog, result,
+                                     string_names)
+
+    def _maybe_ddl(self, sql: str):
+        """``CREATE TABLE|VIEW <name> AS <select>`` and ``DROP TABLE|VIEW
+        [IF EXISTS] <name>``.  Tables are immutable, so a VIEW is
+        materialised like a TABLE: the body runs through the whole facade
+        (CTEs, set operations, windows…) and lands on this facade's
+        device under ``name``.  Returns ``{}`` for DDL, else None."""
+        m = _DDL_CREATE.match(sql)
+        if m is not None:
+            name = m.group(2)
+            if name == self._name:
+                raise ValidationError(
+                    f"Cannot CREATE over the base relation: {name}"
+                )
+            out = self.query_sql_table(m.group(3))
+            arrays = {
+                col: np.asarray(vals, dtype=object
+                                if any(isinstance(x, str) for x in vals)
+                                else np.float32)
+                for col, vals in out.items()
+            }
+            self.register_table(name, HostTable.from_dict(arrays))
+            return {}
+        m = _DDL_DROP.match(sql)
+        if m is not None:
+            name = m.group(3)
+            if name in self._catalog:
+                del self._catalog[name]
+            elif not m.group(2):
+                raise ValidationError(f"Unknown table: {name}")
+            return {}
+        return None
 
     def _setop_table(self, ast, catalog) -> dict:
         """A ``UNION / EXCEPT / INTERSECT [ALL]`` chain: each branch runs
@@ -528,7 +651,122 @@ class WarpDB:
             device=self._device,
         )
 
-    # -- entry points outside the slice -------------------------------------
+    # -- EXPLAIN ------------------------------------------------------------
+    def explain(self, query: str, analyze: bool = False) -> str:
+        """The physical plan of a SQL statement or an ``"<expr> [WHERE
+        cond]"`` expression.  ``analyze=True`` also runs the query and
+        appends what was measured: wall time, rows, and the operators it
+        ran (EXPLAIN ANALYZE)."""
+        from .engine.explain import explain_expression, explain_query
+
+        if query.strip().upper().startswith(("SELECT", "WITH")):
+            ast, catalog = self._prepare_sql(query)
+            full = parse_query(tokenize(query))
+            plan = explain_query(ast, self._base_table(ast, catalog), catalog,
+                                 title=full)
+            if full.ctes:
+                names = ", ".join(n for n, _q in full.ctes)
+                plan += (f"\n  ctes: {names} (materialised once per "
+                         "statement; memoised on immutable inputs)")
+            if ast.set_ops:
+                ops = " ".join(op for op, _a, _b in ast.set_ops)
+                plan += (f"\n  set-ops: {len(ast.set_ops) + 1} branches "
+                         f"({ops}; plan above is the first; host-side "
+                         "O(result) merge; INTERSECT binds tighter)")
+            if analyze:
+                # Every select item runs, so the tier is the plan's (the
+                # first-item ``query_sql`` may take a cheaper one).
+                plan += "\n" + self._analyze(
+                    lambda: self.query_sql_table(query))
+            return plan
+        expr_ast, cond_ast = self._parse_expr_query(query)
+        plan = explain_expression(self._table, expr_ast, cond_ast)
+        if analyze:
+            plan += "\n" + self._analyze(lambda: self.query(query))
+        return plan
+
+    def _analyze(self, run) -> str:
+        """Run ``run`` and render its recorded metrics as the EXPLAIN
+        ANALYZE trailer."""
+        from .utils.metrics import last
+
+        result = run()
+        m = last()
+        lines = ["Execution (measured):"]
+        if m is None:
+            lines.append(f"  rows returned: {len(result)}")
+            return "\n".join(lines)
+        lines.append(
+            f"  wall: {m.wall_s * 1e3:.2f} ms  "
+            f"({m.rows_per_s / 1e6:.1f} M rows/s, {m.gb_per_s:.2f} GB/s)")
+        lines.append(f"  rows: {m.rows} scanned -> {m.output_rows} returned")
+        if m.operators:
+            ops = ", ".join(f"{name}{'' if hit else ' [compiled]'}"
+                            for name, hit in m.operators)
+            lines.append(f"  operators: {ops}")
+        if m.collectives:
+            cs = ", ".join(f"{op} {nbytes / 1024:.1f} KiB/device"
+                           for op, nbytes in m.collectives)
+            lines.append(f"  collectives: {cs}")
+        return "\n".join(lines)
+
+    # -- Arrow interchange ----------------------------------------------------
+    def query_arrow(self, expr: str, shared_memory: bool = False):
+        """:meth:`query_np`'s result through the Arrow C Data Interface:
+        ``(array_capsule, schema_capsule)`` for
+        ``pyarrow.Array._import_from_c``.  No Python list is built.  With
+        ``shared_memory=True`` the buffer lives in a POSIX shared-memory
+        segment of its own for another process to map; its file is
+        ``arrow_export.shared_memory_path(array_capsule)``."""
+        from .interchange.arrow_export import export_to_arrow_capsules
+
+        return export_to_arrow_capsules(self.query_np(expr),
+                                        use_shared_memory=shared_memory)
+
+    def query_arrow_table(self, sql: str):
+        """:meth:`query_sql_table`'s columns as one Arrow struct array
+        (``(array_capsule, schema_capsule)``, for
+        ``pa.RecordBatch.from_struct_array``): string columns export as
+        utf8, the rest as float32.  A column is a string column when the
+        statement decodes it through a string vocabulary (or it is
+        STRING_AGG), so an empty one is utf8 too.  (The reference types
+        columns by the primary table's dictionaries alone, and fails on a
+        string column of any other relation.)"""
+        from .interchange.arrow_export import export_table_to_arrow_capsules
+
+        typed: set = set()
+        out = self._query_sql_table(sql, typed)
+        columns = {}
+        for name, vals in out.items():
+            if name in typed or any(isinstance(v, str) for v in vals):
+                columns[name] = [str(v) for v in vals]
+            else:
+                columns[name] = np.asarray(vals, dtype=np.float32)
+        return export_table_to_arrow_capsules(columns)
+
+    def query_record_batch(self, sql: str):
+        """:meth:`query_arrow_table` as a ``pyarrow.RecordBatch`` (imports
+        pyarrow when called)."""
+        import pyarrow as pa
+
+        arr_c, schema_c = self.query_arrow_table(sql)
+        struct = pa.Array._import_from_c(_capsule_address(arr_c),
+                                         _capsule_address(schema_c))
+        return pa.RecordBatch.from_struct_array(struct)
+
+    def query_arrow_array(self, expr: str):
+        """:meth:`query_arrow` as a ``pyarrow.Array`` (imports pyarrow
+        when called)."""
+        import pyarrow as pa
+
+        arr_c, schema_c = self.query_arrow(expr)
+        return pa.Array._import_from_c(_capsule_address(arr_c),
+                                       _capsule_address(schema_c))
+
+    def __repr__(self) -> str:
+        return f"WarpDB({self._name!r}, {self._table!r})"
+
+    # -- entry points outside the port so far ---------------------------------
     def query_sharded(self, *args, **kwargs):
         raise UnsupportedError(
             "Multi-device execution (mesh) is not supported by "
@@ -543,3 +781,10 @@ class WarpDB:
         )
 
     query_streaming_sql = query_streaming_csv
+
+
+def _capsule_address(capsule) -> int:
+    """The pointer a PyCapsule holds."""
+    from .interchange.arrow_export import capsule_address
+
+    return capsule_address(capsule)

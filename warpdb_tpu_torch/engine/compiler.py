@@ -45,6 +45,7 @@ from ..frontend.ast import (
     WindowFunction,
     unalias,
 )
+from ..utils.metrics import note_operator
 from . import udf as udf_mod
 
 __all__ = [
@@ -409,7 +410,10 @@ def get_or_build(key: tuple, build: Callable[[], Callable]) -> Callable:
         if fn is not None:
             _plan_cache.move_to_end(key)
             _cache_hits += 1
-            return fn
+    if fn is not None:
+        note_operator(key[0], True)
+        return fn
+    note_operator(key[0], False)
     fn = build()
     with _cache_lock:
         _plan_cache[key] = fn
@@ -418,6 +422,39 @@ def get_or_build(key: tuple, build: Callable[[], Callable]) -> Callable:
             _plan_cache.popitem(last=False)
         _cache_misses += 1
     return fn
+
+
+# Per-instance LRU memos (joins, pushdown filters, eager rewrites,
+# subqueries, CTEs).  One lock guards every lookup and update, so threads
+# sharing a facade (the HTTP server's) never see an entry evicted between
+# its lookup and its move to the end.  Two threads that miss one key may
+# both build it; the later entry stays, and both are the same table.
+_memo_lock = threading.Lock()
+
+
+def memo_get(owner, attr: str, key):
+    """``owner.<attr>[key]``, marked most recently used; None if absent."""
+    with _memo_lock:
+        memo = getattr(owner, attr, None)
+        hit = None if memo is None else memo.get(key)
+        if hit is not None:
+            memo.move_to_end(key)
+        return hit
+
+
+def memo_put(owner, attr: str, key, value, entries: int):
+    """Store ``value`` in ``owner.<attr>``, an LRU of ``entries``; returns
+    ``value``."""
+    with _memo_lock:
+        memo = getattr(owner, attr, None)
+        if memo is None:
+            memo = OrderedDict()
+            setattr(owner, attr, memo)
+        memo[key] = value
+        memo.move_to_end(key)
+        while len(memo) > entries:
+            memo.popitem(last=False)
+    return value
 
 
 def compile_filter_project(expr: Node, cond: Optional[Node], columns: dict):

@@ -13,8 +13,8 @@ Counterpart of ``warpdb_tpu/engine/executor.py`` for the port's slice:
 
 CTEs and set operations resolve at the facade.  Window functions and
 QUALIFY lower through ``window_exec``, grouping sets through
-``grouping_sets``; STRING_AGG and APPROX_COUNT_DISTINCT raise
-``UnsupportedError`` naming the feature.  Operators evaluate over the
+``grouping_sets``; a global STRING_AGG runs as a grouped query over a
+constant key.  Operators evaluate over the
 table's unpadded row views; PyTorch's dynamic shapes replace the
 reference's capacity buckets, and a filter is a boolean index, which
 keeps row order.
@@ -63,7 +63,9 @@ from ..frontend.ast import (
 )
 from ..storage.strings import literal_code
 from ..ops.aggregate import count_distinct
+from ..ops.hll import hll_estimate, hll_grouped_registers
 from ..ops.sort import (
+    float_sort_key,
     lexsort,
     order_key,
     sort_by_keys,
@@ -82,6 +84,7 @@ from .compiler import (
     compile_filter_project,
     raw_int_item,
 )
+from ..utils.metrics import note_operator
 from .group_exec import (
     _collect_agg_specs,
     _group_level_eval,
@@ -112,7 +115,6 @@ __all__ = [
     "result_column_name",
     "bind_strings",
     "expand_stars_query",
-    "reject_unsupported",
     "resolve_order_aliases",
 ]
 
@@ -126,36 +128,8 @@ def _next_pow2(n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The slice's boundary
+# Statements the facade resolves
 # ---------------------------------------------------------------------------
-
-def _reject_nodes(node: Optional[Node]) -> None:
-    """Raise ``UnsupportedError`` at STRING_AGG or APPROX_COUNT_DISTINCT
-    in ``node``, the two aggregates outside the port."""
-    if node is None:
-        return
-    for n in walk(node):
-        if isinstance(n, Aggregation) and n.agg in (
-            AggregationType.STRING_AGG, AggregationType.APPROX_COUNT_DISTINCT,
-        ):
-            raise UnsupportedError(
-                f"{n.agg.name} is not supported by warpdb_tpu_torch yet"
-            )
-
-
-def reject_unsupported(query: Query) -> None:
-    """Raise ``UnsupportedError`` naming the first feature of ``query``
-    outside the port: STRING_AGG or APPROX_COUNT_DISTINCT in any clause.
-    Subqueries, CTE bodies and set-op branches are checked when they
-    run."""
-    for node in [
-        *query.select_list, query.where, query.having, query.qualify,
-        *(query.group_by.keys if query.group_by else ()),
-        *(t.expr for t in (query.order_by.terms if query.order_by else ())),
-        *(j.condition for j in query.joins),
-    ]:
-        _reject_nodes(node)
-
 
 def _reject_facade_only(query: Query) -> None:
     """Set operations and CTEs resolve at the facade, not here."""
@@ -391,7 +365,8 @@ def bind_strings(node: Optional[Node], table) -> Optional[Node]:
     if isinstance(node, Aggregation):
         be = bind_strings(node.expr, table)
         if node.agg in (AggregationType.SUM, AggregationType.AVG,
-                        AggregationType.MEDIAN, AggregationType.PERCENTILE):
+                        AggregationType.MEDIAN, AggregationType.PERCENTILE,
+                        AggregationType.STRING_AGG):
             av = _vocab_of(be, table)
             if av is not None and av.dtype.kind in "iu":
                 raise ValidationError(
@@ -457,8 +432,6 @@ def run_expression(table, expr: Node, cond: Optional[Node]) -> np.ndarray:
     """Fused filter + projection; exactly ``num_rows`` f32 values
     (filtered-out rows 0.0).  A provably-false filter skips the device;
     a provably-true one is dropped."""
-    _reject_nodes(expr)
-    _reject_nodes(cond)
     expr = fold_constants(bind_strings(expr, table))
     if cond is not None:
         cond = fold_constants(bind_strings(cond, table))
@@ -676,7 +649,6 @@ def _resolve_subqueries(query: Query, table, catalog):
     catalog, decorrelation, then expression subqueries.  Returns
     ``(query', table', catalog')``."""
     _reject_facade_only(query)
-    reject_unsupported(query)
     query = resolve_order_aliases(query, table.columns)
     _validate_relations(query, catalog)
     if query.from_subquery is not None:
@@ -708,6 +680,17 @@ def _join_rewrites(query: Query, table, catalog):
     return query, table, catalog
 
 
+def _global_string_agg(query: Query) -> bool:
+    """An ungrouped, unqualified query with STRING_AGG in its select list
+    or HAVING."""
+    return query.group_by is None and query.qualify is None and any(
+        isinstance(n, Aggregation) and n.agg is AggregationType.STRING_AGG
+        for item in [*query.select_list, query.having]
+        if item is not None
+        for n in walk(item)
+    )
+
+
 def run_query(query: Query, table, catalog: Optional[dict] = None
               ) -> np.ndarray:
     """Execute a parsed SELECT against ``table`` (the FROM relation,
@@ -719,7 +702,8 @@ def run_query(query: Query, table, catalog: Optional[dict] = None
     if ((query.group_by is not None and query.group_by.sets is not None)
             or query.qualify is not None
             or (query.group_by is None
-                and any(_has_nested_window(it) for it in query.select_list))):
+                and any(_has_nested_window(it) for it in query.select_list))
+            or _global_string_agg(query)):
         out = run_query_table(query, table, catalog)
         return next(iter(out.values()), np.zeros(0, np.float32))
     query, table, catalog = _resolve_subqueries(query, table, catalog)
@@ -824,6 +808,11 @@ def run_query_table(query: Query, table, catalog: Optional[dict] = None
     if expanded is not query.select_list:
         query = copy.copy(query)
         query.select_list = expanded
+    if _global_string_agg(query):
+        # The scalar global path is float-typed: a global STRING_AGG is a
+        # grouped query over a constant key (one group, the whole table).
+        query = copy.copy(query)
+        query.group_by = GroupBy((Constant("1"),))
 
     if query.joins:
         # Materialise the join chain once; the join-free rest runs on
@@ -899,6 +888,7 @@ def _run_projection_multi(query: Query, table, select_items: list) -> list:
     """Non-grouped multi-item SELECT: every item over one WHERE mask,
     carried through one stable sort (ORDER BY) or the mask's order;
     row-aligned by construction (reference ``_run_projection_multi``)."""
+    note_operator("project_multi", True)
     raw_specs = [raw_int_item(s, table) for s in select_items]
     outs = [_row_values(s, table, r) for s, r in zip(select_items, raw_specs)]
     valid = _where_mask(query, table)
@@ -972,6 +962,8 @@ def _run_projection(query: Query, table) -> np.ndarray:
         and raw_spec is None
     )
     out_dtype = np.float32 if raw_spec is None else raw_spec[1]
+    note_operator("project_topk" if use_topk else "project"
+                  if order is None else "project_sort", True)
     vals = _row_values(select, table, raw_spec)
     valid = _where_mask(query, table)
     count = table.num_rows if valid is None else int(valid.sum())
@@ -1003,6 +995,7 @@ def _run_distinct(query: Query, table, select) -> np.ndarray:
     order = query.order_by
     raw_spec = raw_int_item(select, table)
     out_dtype = np.float32 if raw_spec is None else raw_spec[1]
+    note_operator("distinct", True)
     dres = _try_dense_group(query, table, [select], [Constant("1")], ["1.0f"],
                             need=())
     if dres is not None:
@@ -1034,6 +1027,12 @@ def _global_agg_value(agg, param, vals, valid):
         return (cnt_i - nulls).to(_F32)
     if agg is AggregationType.COUNT_DISTINCT:
         return count_distinct((vals,), valid).to(_F32)
+    if agg is AggregationType.APPROX_COUNT_DISTINCT:
+        # One group: a (1, m) register table.
+        regs = hll_grouped_registers(
+            torch.zeros_like(vals, dtype=torch.int64), float_sort_key(vals),
+            valid, 1)
+        return hll_estimate(regs)[0]
     if vals.numel() == 0 and agg in (
         AggregationType.MIN, AggregationType.MAX,
         AggregationType.MEDIAN, AggregationType.PERCENTILE,
@@ -1091,6 +1090,7 @@ def _global_inputs(query, table):
 def _run_global_agg(query: Query, table) -> np.ndarray:
     """SELECT AGG(expr) with no GROUP BY → one scalar."""
     select = query.select_list[0]
+    note_operator("global_agg", True)
     cols, valid = _global_inputs(query, table)
     agg, expr = _count_rewrite(select.agg, select.expr, table)
     vals = broadcast(_as_f32(build_evaluator(expr)(cols)), table.num_rows)
@@ -1103,6 +1103,7 @@ def _run_global_agg_expr(query: Query, table) -> np.ndarray:
     aggregate in one pass, then the arithmetic on the host scalars."""
     select = query.select_list[0]
     specs = _collect_agg_specs([select])
+    note_operator("global_agg_expr", True)
     cols, valid = _global_inputs(query, table)
     agg_values = {}
     for s in specs:

@@ -8,11 +8,15 @@ otherwise.  PyTorch has dynamic shapes, so the reference's capacity
 buckets and two-phase counting dispatches are gone; results, including
 row order, are the reference's.  The partial form (keys, counts,
 sum/min/max per value expression) is pulled to the host and finished in
-NumPy.
+NumPy.  Per-group statistics that need each group's values (COUNT
+DISTINCT, MEDIAN, PERCENTILE, STRING_AGG, APPROX_COUNT_DISTINCT's
+HyperLogLog registers) come from one stable sort by the group keys,
+whose segments line up with the aggregate table row for row.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -43,7 +47,9 @@ from ..ops.aggregate import (
     slot_group_aggregate,
     sorted_first_flags,
 )
+from ..ops.hll import HLL_M, hll_estimate, hll_grouped_registers
 from ..ops.sort import U32_MAX, float_sort_key, int_sort_key, lexsort
+from ..utils.metrics import note_operator
 from . import udf as udf_mod
 from .compiler import (
     _as_bool,
@@ -242,15 +248,12 @@ def _grouped_plan(query: Query, select_items: list, table=None) -> dict:
             AggregationType.COUNT_DISTINCT,
             AggregationType.MEDIAN,
             AggregationType.PERCENTILE,
+            AggregationType.STRING_AGG,
+            AggregationType.APPROX_COUNT_DISTINCT,
         ):
             spec_to_vidx[spec.key] = "cd"
             cd_specs.append(spec)
             continue
-        if spec.agg in (AggregationType.STRING_AGG,
-                        AggregationType.APPROX_COUNT_DISTINCT):
-            raise UnsupportedError(
-                f"{spec.agg.name} is not supported by warpdb_tpu_torch yet"
-            )
         c = spec.expr.canonical()
         if c not in vexpr_canons:
             vexpr_canons.append(c)
@@ -291,9 +294,12 @@ def _row_mask(where, table, cols) -> torch.Tensor:
     return broadcast(_as_bool(build_evaluator(where)(cols)), n)
 
 
-def _grouped_partials(query: Query, table, plan: dict) -> "_HostGroupResult":
+def _grouped_partials(query: Query, table, plan: dict,
+                      final: bool = True) -> "_HostGroupResult":
     """The per-group aggregate table (keys, counts, sum/min/max per value
-    expression), computed on the device and pulled to the host."""
+    expression), computed on the device and pulled to the host.
+    ``final=False`` (a streaming chunk's partial) turns APPROX_COUNT_DISTINCT
+    into its mergeable u8 registers."""
     group_keys = plan["group_keys"]
     # LIMIT pushdown of the reference (legal when groups emerge in the
     # default key order): the port slices on the host instead, with the
@@ -335,7 +341,13 @@ def _grouped_partials(query: Query, table, plan: dict) -> "_HostGroupResult":
                                plan["vexpr_canons"], plan["keys_canon"],
                                plan["need"], device_finish=device_finish)
     for spec in plan["cd_specs"]:
-        result.dcounts[spec.key] = _grouped_value_order_stat(
+        if spec.agg is AggregationType.STRING_AGG:
+            stat = _grouped_string_agg
+        elif spec.agg is AggregationType.APPROX_COUNT_DISTINCT:
+            stat = functools.partial(_grouped_hll, want_registers=not final)
+        else:
+            stat = _grouped_value_order_stat
+        result.dcounts[spec.key] = stat(
             query, table, group_keys, spec, result.num_groups,
             raw_int_key=result.raw_int_key,
         )
@@ -621,31 +633,45 @@ def _slot_table_result(res, kp, df) -> "_HostGroupResult":
     return _to_host_result(keys, res.counts[idx], values, kp["raw_int_key"])
 
 
-def _try_dense_group(query, table, group_keys, vexpr_nodes, vexpr_canons,
-                     need=("sum", "min", "max"), device_finish=None):
-    """The sort-free GROUP BY ladder: dense slot table for small key
-    ranges, midrange (K2 or scatter) for wider ones; None when stats
-    cannot prove integral key range(s) narrow enough."""
+def slot_tier(table, group_keys, need):
+    """``(key plan, "DENSE" | "MIDRANGE", K2)`` of the sort-free GROUP BY
+    ladder, or None for the sorted tier: dense slot table for small key
+    ranges, midrange for wider ones.  Midrange (reference
+    ``_midrange_group_run``) SUM/COUNT-only queries up to
+    ``group_hist_max_slots`` take kernel K2; K2 adds with atomics, so a
+    non-finite value reaches only its own slot and the reference's
+    finite-values gate (a one-hot product hazard) is dropped.  EXPLAIN
+    names the tier from here."""
     kp = _dense_key_plan(table, group_keys)
     if kp is None:
         return None
     cfg = get_config()
-    base, num_slots = kp["base"], kp["num_slots"]
-    midrange = num_slots > cfg.dense_group_max_slots
-    if (midrange and num_slots > cfg.midrange_group_base_slots
+    num_slots = kp["num_slots"]
+    if num_slots <= cfg.dense_group_max_slots:
+        return kp, "DENSE", False
+    if (num_slots > cfg.midrange_group_base_slots
             and num_slots > table.num_rows):
         return None
-    # Midrange (reference ``_midrange_group_run``): SUM/COUNT-only queries
-    # up to ``group_hist_max_slots`` take kernel K2.  K2 adds with
-    # atomics, so a non-finite value reaches only its own slot: the
-    # reference's finite-values gate (a one-hot product hazard) is
-    # dropped.  The reference's dense tier has no device finish.
-    use_hist = (midrange and set(need) <= {"sum"}
-                and num_slots <= cfg.group_hist_max_slots)
+    return kp, "MIDRANGE", (set(need) <= {"sum"}
+                            and num_slots <= cfg.group_hist_max_slots)
+
+
+def _try_dense_group(query, table, group_keys, vexpr_nodes, vexpr_canons,
+                     need=("sum", "min", "max"), device_finish=None):
+    """The sort-free GROUP BY ladder (``slot_tier``); None when stats
+    cannot prove integral key range(s) narrow enough."""
+    tier = slot_tier(table, group_keys, need)
+    if tier is None:
+        return None
+    kp, name, use_hist = tier
+    base, num_slots = kp["base"], kp["num_slots"]
+    midrange = name == "MIDRANGE"
+    # The reference's dense tier has no device finish.
     df = None
     if midrange:
         keys_canon = tuple(k.canonical() for k in group_keys)
         df = _device_finish_plan(device_finish, keys_canon, vexpr_canons)
+    note_operator("midrange_group" if midrange else "dense_group", True)
     cols = table.row_columns()
     n = table.num_rows
     valid = _row_mask(query.where, table, cols)
@@ -706,6 +732,7 @@ def _grouped_value_order_stat(query, table, group_keys, spec, num_groups,
     """Per-group COUNT(DISTINCT e), MEDIAN(e) or PERCENTILE(e, q) from one
     sort by (group keys…, value).  Segments emerge in the same ascending
     key order as the aggregate table, so rows align."""
+    note_operator("group_order_stat", True)
     agg, param = spec.agg, spec.param
     cols = table.row_columns()
     valid = _row_mask(query.where, table, cols)
@@ -742,11 +769,115 @@ def _grouped_value_order_stat(query, table, group_keys, spec, num_groups,
     return out.cpu().numpy().astype(np.float32)[: int(num_groups)]
 
 
+def _sorted_segments(query, table, group_keys, spec, raw_int_key,
+                     by_value: bool):
+    """The valid rows sorted by the group keys (and, with ``by_value``,
+    then by the value's ``float_sort_key``), stable: ``(values sorted,
+    group-start flags)``, or None when no row is valid.  Segments emerge
+    in the aggregate table's ascending key order."""
+    cols = table.row_columns()
+    valid = _row_mask(query.where, table, cols)
+    skeys = [k[valid] for k in
+             _order_stat_keys(query, table, group_keys, raw_int_key, cols)]
+    vals = broadcast(_as_f32(build_evaluator(spec.expr)(cols)),
+                     table.num_rows)[valid]
+    if vals.numel() == 0:
+        return None
+    perm = lexsort([*skeys, float_sort_key(vals)] if by_value else skeys)
+    return vals[perm], sorted_first_flags(tuple(k[perm] for k in skeys))
+
+
+def _grouped_hll(query, table, group_keys, spec, num_groups,
+                 raw_int_key: bool = False, want_registers: bool = False):
+    """Per-group APPROX_COUNT_DISTINCT (HyperLogLog, ``ops/hll.py``): one
+    stable sort by the group keys gives ascending segment ids; the values'
+    ``float_sort_key`` images hash and scatter-max into a (groups, m)
+    register table; the estimate runs on the device and O(groups) values
+    come back.  ``want_registers`` (a streaming chunk's partial) returns
+    the u8 registers instead, which merge by elementwise max.
+
+    The reference sizes the table at ``capacity = next_pow2(max(G, 16))``
+    rows and keeps ``capacity · m ≤ 2^23``; above that (over 2048 groups)
+    it returns the EXACT COUNT(DISTINCT), as this port does."""
+    ng = int(num_groups)
+    capacity = 1 << (max(ng, 16) - 1).bit_length()
+    if capacity * HLL_M > (1 << 23):
+        if want_registers:
+            raise UnsupportedError(
+                "APPROX_COUNT_DISTINCT streaming supports up to "
+                f"{(1 << 23) // HLL_M} groups per chunk (got {ng}); use "
+                "COUNT(DISTINCT ...) — its streamed state is bounded by the "
+                "distinct count"
+            )
+        exact = _AggSpec(AggregationType.COUNT_DISTINCT, spec.expr)
+        return _grouped_value_order_stat(query, table, group_keys, exact,
+                                         num_groups, raw_int_key=raw_int_key)
+    note_operator("group_hll", True)
+    got = _sorted_segments(query, table, group_keys, spec, raw_int_key,
+                           by_value=False)
+    if got is None:
+        regs = torch.zeros((ng, HLL_M), dtype=torch.int32,
+                           device=table.device)
+    else:
+        vals_s, key_first = got
+        seg = torch.cumsum(key_first.to(torch.int64), 0) - 1
+        regs = hll_grouped_registers(seg, float_sort_key(vals_s), None,
+                                     max(ng, int(seg[-1]) + 1))[:ng]
+    if want_registers:
+        return regs.to(torch.uint8).cpu().numpy()
+    return hll_estimate(regs).cpu().numpy().astype(np.float32)
+
+
+def _grouped_string_agg(query, table, group_keys, spec, num_groups,
+                        raw_int_key: bool = False) -> np.ndarray:
+    """STRING_AGG(expr, sep): one stable sort by (group keys…, value) puts
+    each group's values together, ascending (NaN last, -0.0 equal to
+    +0.0); the sorted values and the group sizes come to the host (O(N):
+    the result holds every value), which decodes and joins.  String
+    expressions decode through their vocabulary, numbers format ``%g``
+    from the f32 values; a group without values gives "".  An object
+    array aligned row for row with the aggregate table."""
+    from ..frontend.ast import CodeMap
+    from ..storage.strings import decode_codes
+
+    node = unalias(spec.expr)
+    vocab = None
+    if isinstance(node, CodeMap):
+        vocab = node.out_vocab
+    elif isinstance(node, Variable) and table.dicts:
+        vocab = table.dicts.get(node.name)
+        if vocab is None:
+            vocab = table.dicts.get(node.unqualified)
+    note_operator("group_string_agg", True)
+    ng = int(num_groups)
+    out = np.full(ng, "", dtype=object)
+    got = _sorted_segments(query, table, group_keys, spec, raw_int_key,
+                           by_value=True)
+    if got is None:
+        return out
+    vals_s, key_first = got
+    starts = torch.nonzero(key_first).reshape(-1)
+    ends = torch.cat([starts[1:], starts.new_tensor([vals_s.shape[0]])])
+    counts = (ends - starts).cpu().numpy()[:ng]
+    vals_h = vals_s.cpu().numpy()
+    if vocab is not None:
+        parts = decode_codes(vals_h, vocab)
+    else:
+        parts = [f"{v:g}" for v in vals_h.tolist()]
+    sep = "" if spec.param is None else str(spec.param)
+    pos = 0
+    for g, c in enumerate(counts.tolist()):
+        out[g] = sep.join(parts[pos:pos + c])
+        pos += c
+    return out
+
+
 def _sorted_group(query, table, group_keys, vexpr_nodes, vexpr_canons,
                   keys_canon, need=("sum", "min", "max"), device_finish=None):
     """Sort-based GROUP BY (reference ``_sorted_group``): one stable sort
     by the key tuple, then per-segment reductions.  A bare integer /
     string-code key sorts and carries its raw int32 bits."""
+    note_operator("group_sort", True)
     cols = table.row_columns()
     n = table.num_rows
     raw_int = False
@@ -818,8 +949,9 @@ def _finish_grouped(query, select_items, specs, spec_to_vidx,
     outs = []
     for item in select_items:
         arr = np.asarray(_group_level_eval(item, key_canon_map, agg_values))
-        if arr.dtype.kind in "iu":
-            # Integer group keys stay integer (exact beyond 2^24).
+        if arr.dtype == object or arr.dtype.kind in "iu":
+            # STRING_AGG's strings stay an object array; integer group
+            # keys stay integer (exact beyond 2^24).
             vals = np.broadcast_to(arr, (num_groups,))[mask]
         else:
             vals = np.broadcast_to(np.asarray(arr, dtype=np.float32),
@@ -827,10 +959,15 @@ def _finish_grouped(query, select_items, specs, spec_to_vidx,
         if order is not None:
             vals = vals[order]
         if query.distinct:
-            vals = np.unique(vals)
+            if vals.dtype == object:
+                vals = np.unique(vals.astype(str)).astype(object)
+            else:
+                vals = np.unique(vals)
             if query.order_by is not None and not query.order_by.ascending:
                 vals = vals[::-1]
-        if vals.dtype.kind in "iu":
+        if vals.dtype == object:
+            outs.append(np.asarray(vals, dtype=object))
+        elif vals.dtype.kind in "iu":
             outs.append(np.ascontiguousarray(vals))
         else:
             outs.append(np.ascontiguousarray(vals, dtype=np.float32))

@@ -34,6 +34,7 @@ from ..frontend.ast import (
     walk,
 )
 from ..storage.table import DeviceTable
+from ..utils.metrics import note_operator
 from .compiler import build_evaluator
 from .window_exec import _host_order_and_slice
 
@@ -73,6 +74,7 @@ def _run_grouping_sets(query: Query, table, catalog) -> dict:
     ORDER BY / LIMIT / OFFSET over the combined rows."""
     from .executor import result_column_names, run_query_table
 
+    note_operator("grouping_sets", True)
     gb = query.group_by
     keys = list(gb.keys)
     key_canon = [k.canonical() for k in keys]

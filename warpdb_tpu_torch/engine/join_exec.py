@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -54,8 +53,16 @@ from ..config import get_config
 from ..ops.expand import sorted_take, uniform_expand, windowed_expand
 from ..ops.join import join_match_counts
 from ..storage.table import DeviceTable
+from ..utils.metrics import note_operator
 from . import udf as udf_mod
-from .compiler import _as_bool, _as_f32, broadcast, build_evaluator
+from .compiler import (
+    _as_bool,
+    _as_f32,
+    broadcast,
+    build_evaluator,
+    memo_get,
+    memo_put,
+)
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -295,19 +302,14 @@ def _materialize_join(left, right, right_name: str, cond: Optional[Node],
     misses; CROSS is an equi-join on a constant key."""
     pairs = [] if kind == "cross" else _equality_pairs(cond)
     cache_cap = get_config().join_cache_entries
-    memo = mkey = None
+    mkey = (
+        _table_uid(right), right_name,
+        "<cross>" if cond is None else cond.canonical(), kind,
+        None if needed is None else frozenset(needed),
+    )
     if cache_cap > 0:
-        memo = getattr(left, "_join_memo", None)
-        if memo is None:
-            memo = left._join_memo = OrderedDict()
-        mkey = (
-            _table_uid(right), right_name,
-            "<cross>" if cond is None else cond.canonical(), kind,
-            None if needed is None else frozenset(needed),
-        )
-        hit = memo.get(mkey)
+        hit = memo_get(left, "_join_memo", mkey)
         if hit is not None:
-            memo.move_to_end(mkey)
             return hit[0]  # hit[1] keeps the build table (and its uid) alive
 
     if kind in ("right", "full"):
@@ -317,10 +319,8 @@ def _materialize_join(left, right, right_name: str, cond: Optional[Node],
     else:
         out = _materialize_join_local(left, right, right_name, pairs, needed,
                                       kind)
-    if memo is not None:
-        memo[mkey] = (out, right)
-        while len(memo) > cache_cap:
-            memo.popitem(last=False)
+    if cache_cap > 0:
+        memo_put(left, "_join_memo", mkey, (out, right), cache_cap)
     return out
 
 
@@ -386,6 +386,7 @@ def _materialize_join_local(left, right, right_name: str, pairs,
                             kind: str = "inner") -> DeviceTable:
     """Single-program equi-join.  ``kind="left"`` keeps unmatched probe
     rows: they emit once, with the build columns filled NaN / -1."""
+    note_operator(f"join_{kind}", True)
     lkeys, rkeys = _join_keys(left, right, right_name, pairs)
     n_left, n_right = left.num_rows, right.num_rows
     dev = left.device
@@ -569,18 +570,14 @@ def _try_eager_join_aggregate(query, table, catalog):
     catalog = catalog or {}
     right = catalog.get(join.table, table)
 
-    memo = getattr(table, "_eja_memo", None)
-    if memo is None:
-        memo = table._eja_memo = OrderedDict()
     # canonical() ignores aliases, but the rewritten query carries output
     # names, so the aliases are part of the key.
     sel_names = tuple(
         s.name if isinstance(s, Alias) else None for s in query.select_list
     )
     mkey = (query.canonical(), sel_names, _table_uid(right))
-    hit = memo.get(mkey)
+    hit = memo_get(table, "_eja_memo", mkey)
     if hit is not None:
-        memo.move_to_end(mkey)
         q2, dim2, _right_ref = hit
         catalog2 = dict(catalog)
         catalog2[join.table] = dim2
@@ -771,9 +768,7 @@ def _try_eager_join_aggregate(query, table, catalog):
     q2.select_list = new_select
     q2.having = new_having
     q2.order_by = new_order
-    memo[mkey] = (q2, dim2, right)
-    while len(memo) > 4:
-        memo.popitem(last=False)
+    memo_put(table, "_eja_memo", mkey, (q2, dim2, right), 4)
     catalog2 = dict(catalog)
     catalog2[join.table] = dim2
     return q2, catalog2
@@ -924,11 +919,8 @@ def _filtered_table_for(table, where, base_cols):
     n_match = _build_prefilter_count(table, where)
     if n_match * 2 > table.num_rows:
         return None
-    memo = getattr(table, "_prefilter_memo", None)
-    if memo is None:
-        memo = table._prefilter_memo = OrderedDict()
     mkey = (where.canonical(), tuple(base_cols), udf_mod.registry_version())
-    filtered = memo.get(mkey)
+    filtered = memo_get(table, "_prefilter_memo", mkey)
     if filtered is None:
         pos = torch.nonzero(_where_rows(table, where)).reshape(-1)
         rows = table.row_columns()
@@ -943,9 +935,7 @@ def _filtered_table_for(table, where, base_cols):
             dicts={c: table.dicts[c] for c in base_cols if c in table.dicts},
             device=table.device,
         )
-        memo[mkey] = filtered
-        while len(memo) > 16:
-            memo.popitem(last=False)
+        memo_put(table, "_prefilter_memo", mkey, filtered, 16)
     return filtered
 
 

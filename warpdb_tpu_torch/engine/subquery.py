@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from collections import OrderedDict
 
 import numpy as np
 
@@ -59,6 +58,7 @@ from ..frontend.ast import (
 from ..storage.strings import decode_codes, literal_code
 from ..storage.table import DataType, DeviceTable, HostTable
 from . import udf as udf_mod
+from .compiler import memo_get, memo_put
 from .join_exec import _and_chain, _and_conjuncts, _table_uid
 
 _CORR_PREFIX = "__corr"
@@ -122,18 +122,11 @@ def query_dep_key(q: Query, base, catalog) -> tuple:
 
 
 def _memoised(owner, key, make, attr="_subq_memo", entries=_MEMO_ENTRIES):
-    """``make()`` memoised on ``owner.<attr>``, an LRU of ``entries``."""
-    memo = getattr(owner, attr, None)
-    if memo is None:
-        memo = OrderedDict()
-        setattr(owner, attr, memo)
-    hit = memo.get(key)
-    if hit is not None:
-        memo.move_to_end(key)
-        return hit
-    hit = memo[key] = make()
-    while len(memo) > entries:
-        memo.popitem(last=False)
+    """``make()`` memoised on ``owner.<attr>``, an LRU of ``entries``
+    (``compiler.memo_get`` / ``memo_put``, lock-guarded)."""
+    hit = memo_get(owner, attr, key)
+    if hit is None:
+        hit = memo_put(owner, attr, key, make(), entries)
     return hit
 
 

@@ -44,6 +44,7 @@ from ..frontend.ast import (
     walk,
 )
 from ..ops.sort import sort_by_keys
+from ..utils.metrics import note_operator
 from ..ops.window import (
     dense_window_aggregate,
     window_aggregate,
@@ -243,6 +244,7 @@ def _run_window(query: Query, table) -> np.ndarray:
     """``SELECT AGG(e) OVER (…)``: the window values of the rows WHERE
     keeps, in row order, or sorted by the outer ORDER BY (f32 keys,
     stable, as the reference)."""
+    note_operator("window", True)
     select: WindowFunction = query.select_list[0]
     cols = table.row_columns()
     valid = _row_mask(query.where, table, cols)
@@ -340,6 +342,8 @@ def _run_window_exprs(query: Query, table, catalog) -> dict:
     arithmetic evaluates on the host in f64 (the reference's host
     route)."""
     from .executor import _dedup_rows, run_query_table
+
+    note_operator("window_exprs", True)
 
     if query.group_by is not None:
         raise UnsupportedError(
@@ -453,6 +457,7 @@ def _run_qualify(query: Query, table, catalog) -> dict:
     references) each comparison side of the predicate runs as a hidden
     select item and the predicate's boolean structure evaluates on the
     host over the finished columns."""
+    note_operator("qualify", True)
     from .executor import _dedup_rows, run_query_table
 
     qualify = query.qualify

@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..errors import ExecutionError
+from ..utils.metrics import note_operator
 
 __all__ = [
     "windowed_expand", "windowed_expand_plain",
@@ -145,6 +146,7 @@ def windowed_expand(offsets: torch.Tensor, cols, total: int,
     if not cols:
         raise ExecutionError("windowed_expand takes at least one column")
     if not _on_cuda("windowed_expand", offsets, *cols):
+        note_operator("K3 windowed_expand (plain)", True)
         return windowed_expand_plain(offsets, cols, total, owner)
     from .. import _build
 
@@ -175,6 +177,7 @@ def windowed_expand(offsets: torch.Tensor, cols, total: int,
             part.shape[0], stream,
         ))
         windowed_expand.launches += 1
+        _build.note_launch("windowed_expand", "K3 windowed_expand")
     return own, dup, _unwords(list(out), cols)
 
 
@@ -185,6 +188,7 @@ def uniform_expand(cols, k: int, total: int) -> tuple:
     if not cols:
         return ()
     if not _on_cuda("uniform_expand", *cols):
+        note_operator("K4 uniform_expand (plain)", True)
         return uniform_expand_plain(cols, k, total)
     from .. import _build
 
@@ -208,6 +212,7 @@ def uniform_expand(cols, k: int, total: int) -> tuple:
             out[s].data_ptr(), stride, stream,
         ))
         uniform_expand.launches += 1
+        _build.note_launch("uniform_expand", "K4 uniform_expand")
     return _unwords(list(out), cols)
 
 
@@ -220,6 +225,7 @@ def sorted_take(cols, idx: torch.Tensor,
     if not cols:
         return ()
     if not _on_cuda("sorted_take", idx, valid, *cols):
+        note_operator("K5 sorted_take (plain)", True)
         return sorted_take_plain(cols, idx, valid)
     from .. import _build
 
@@ -243,6 +249,7 @@ def sorted_take(cols, idx: torch.Tensor,
             out[s].data_ptr(), n, grid, stream,
         ))
         sorted_take.launches += 1
+        _build.note_launch("sorted_take", "K5 sorted_take")
     return _unwords(list(out), cols)
 
 

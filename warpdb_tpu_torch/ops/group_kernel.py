@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from ..errors import ExecutionError
+from ..utils.metrics import note_operator
 
 __all__ = ["group_counts_sums", "group_counts_sums_plain", "slice_plan",
            "Plan", "MAX_SLOTS"]
@@ -125,6 +126,7 @@ def group_counts_sums(gid: torch.Tensor, values, num_slots: int):
     """Counts and per-slot sums of ``values`` by ``gid`` (module doc)."""
     values = tuple(values)
     if gid.device.type == "cpu":
+        note_operator("K2 group_hist (plain)", True)
         return group_counts_sums_plain(gid, values, num_slots)
     if gid.device.type != "cuda":
         raise ExecutionError(f"group kernel: unsupported device {gid.device}")
@@ -181,6 +183,7 @@ def group_counts_sums(gid: torch.Tensor, values, num_slots: int):
                 f"group kernel launch failed: CUDA error {rc}"
             )
         group_counts_sums.launches += 1
+        _build.note_launch("group_hist", "K2 group_hist")
     return counts, tuple(sums[i] for i in range(len(values)))
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import ExecutionError
+from ..utils.metrics import note_operator
 
 __all__ = ["topk_candidates", "topk_candidates_plain", "kernel_k", "MAX_K",
            "THREADS", "UNROLL"]
@@ -75,6 +76,7 @@ _scratch: dict = {}
 def topk_candidates(u: torch.Tensor, k: int) -> torch.Tensor:
     """(1, kernel_k(k)) sorted top row of ``u`` (see module doc)."""
     if u.device.type == "cpu":
+        note_operator("K1 topk (plain)", True)
         return topk_candidates_plain(u, k)
     if u.device.type != "cuda":
         raise ExecutionError(f"top-k kernel: unsupported device {u.device}")
@@ -105,6 +107,7 @@ def topk_candidates(u: torch.Tensor, k: int) -> torch.Tensor:
     if rc != 0:
         raise ExecutionError(f"top-k kernel launch failed: CUDA error {rc}")
     topk_candidates.launches += 1
+    _build.note_launch("topk", "K1 topk")
     return out
 
 
