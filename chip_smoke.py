@@ -1,6 +1,6 @@
 """Drive warpdb_tpu_torch once on a CUDA card, end to end.
 
-    python3 chip_smoke.py [--profile | --kernels]
+    python3 chip_smoke.py [--profile | --kernels | --stream]
 
 Phases, each raising on failure:
 
@@ -24,7 +24,7 @@ Phases, each raising on failure:
    and K2 at other inputs (each k, ascending and duplicate values, skewed
    ids, nv = 4).
    ``--kernels`` stops here, after printing each kernel instance's ptxas
-   usage;
+   usage, and ``--stream`` runs phase 10 alone after the build;
 4. slice: ``WarpDB(..., device="cuda")`` over bench.py's table (2^25
    rows, seed 12345) runs bench.py's query set and four more queries,
    each checked against NumPy on the same arrays; the K1 and K2 launch
@@ -57,9 +57,32 @@ Phases, each raising on failure:
    EXPLAIN ANALYZE naming K2 and K1; CREATE / query / DROP TABLE; the
    DB-API; 20 HTTP requests (two threads at once for half) and the CLI in
    a subprocess; the K1 and K2 counters must rise;
-10. with ``--profile`` only: one ``torch.profiler`` run per query (card
-   busy time, idle share, largest device items) and each kernel's
-   registers and spills from ``ptxas -v``.
+10. streaming: ``make`` builds the native CSV library from a copy of
+   ``native/`` in the phase's temporary directory, so the checkout ends
+   as it began (its prefetching stream parses the next chunk on a worker
+   thread); K2 and K3 are held to their plain versions at the stream's
+   chunk shapes (``GROUP BY k`` on one chunk, the chunk's INNER and LEFT
+   expansions against ``dimk``); a CSV
+   of bench.py's columns at 2^25 rows (``price`` in whole cents so that
+   its text parses back bit for bit, written by digit arithmetic into a
+   temporary directory removed at the end) streams in the reference's
+   default chunks of 10^6 rows through ``query_streaming_csv`` /
+   ``query_streaming_sql``: an expression, grouped (dense and K2) and
+   global aggregates, top-k, LIMIT with early stop, DISTINCT,
+   COUNT(DISTINCT), APPROX_COUNT_DISTINCT, two joins against ``dimk``,
+   a two-pass window, and 2^20-row side files with a string column, wide
+   int64 keys and narrow int64 keys; each against NumPy, with its
+   launches, chunks, median wall, parser wait, device time, host merge
+   and peak device memory; K2 must launch once a chunk in ``s_group_k``,
+   a join kernel in each join, the narrow int64 stream must be read once,
+   and no peak may reach half the file's device bytes; then the columns
+   of bench.py's 2^25-row table, one chunk and the TPC-H tables go to the
+   card through ``from_host``'s page-locked stage and through a pageable
+   copy, each timed;
+11. with ``--profile`` only: one ``torch.profiler`` run per query (card
+   busy time, idle share, largest device items; of the stream,
+   ``s_group_k`` and ``s_join_dimk``) and each kernel's registers and
+   spills from ``ptxas -v``.
 
 The kernels' JSON record and the card's name and power limit come before
 the last line, ``{"ok": true, "device": {...}}``.  Neither the script nor
@@ -68,11 +91,15 @@ the port imports JAX or ``warpdb_tpu``.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -193,6 +220,47 @@ HBM_TB_S = 3.35
 SUMS = {"group_sum", "group_sum_k", "e2e_join_expand",
         "e2e_join_expand_eager", "e2e_join_filtered", "join_dimk_sum",
         "join_left_sum"}
+
+
+# The streaming phase: bench.py's columns as a CSV of 2^25 rows, read in
+# the reference's default chunks (warpdb_tpu/config.py:22-24), and two
+# 2^20-row side files that take the Python parser (a string column, wide
+# int64 keys, narrow int64 keys).  (name, kind, statement); kind "once" runs and is timed
+# once (the pair-set merge, the two-pass window).
+STREAM_CHUNK = 1_000_000
+STREAM_SIDE_ROWS = 1 << 20
+STREAM_STRINGS = 200
+STREAM_QUERIES = [
+    ("s_expr", "expr", "price * quantity WHERE price > 15"),
+    ("s_group_q", "sql", "SELECT quantity, COUNT(*), SUM(price), MIN(price), "
+     "MAX(price) FROM t GROUP BY quantity"),
+    ("s_group_k", "sql", "SELECT k, SUM(price) FROM t GROUP BY k"),
+    ("s_global", "sql", "SELECT COUNT(*), SUM(price), AVG(price) FROM t "
+     "WHERE price > 50"),
+    ("s_topk", "sql", "SELECT price FROM t ORDER BY price DESC LIMIT 5"),
+    ("s_limit", "sql", "SELECT price, k FROM t WHERE price > 99.9 LIMIT 100"),
+    ("s_distinct", "sql", "SELECT DISTINCT quantity FROM t"),
+    ("s_count_distinct", "once", "SELECT quantity, COUNT(DISTINCT k) FROM t "
+     "GROUP BY quantity"),
+    ("s_hll", "sql", "SELECT quantity, APPROX_COUNT_DISTINCT(k) FROM t "
+     "GROUP BY quantity"),
+    ("s_join_dimk", "join", "SELECT quantity, SUM(price * dimk.w) FROM t "
+     "JOIN dimk ON k = dimk.k GROUP BY quantity"),
+    ("s_join_left", "join", "SELECT COUNT(dimk.w) FROM t LEFT JOIN dimk "
+     "ON k = dimk.k"),
+    ("s_window", "once", "SELECT price - AVG(price) OVER (PARTITION BY "
+     "quantity) AS dev FROM t WHERE price > 99 ORDER BY dev DESC LIMIT 10"),
+    ("s_strings", "strings", "SELECT c, SUM(price) FROM t GROUP BY c"),
+    ("s_int64_wide", "wide", "SELECT k64, COUNT(*), SUM(price) FROM t "
+     "GROUP BY k64"),
+    ("s_int64_narrow", "narrow", "SELECT kn, COUNT(*), SUM(price) FROM t "
+     "GROUP BY kn"),
+]
+# Columns held within SUM_RTOL of float64 (sums, averages, deviations
+# from an average), by statement and position.
+STREAM_SUMS = {"s_group_q": {2}, "s_group_k": {1}, "s_global": {1, 2},
+               "s_join_dimk": {1}, "s_window": {0}, "s_strings": {1},
+               "s_int64_wide": {2}, "s_int64_narrow": {2}}
 
 
 def log(msg: str) -> None:
@@ -1522,6 +1590,414 @@ def phase_surfaces(db, data: dict, host, tdb, tables: dict, kernels: dict,
     return launches
 
 
+def _num(v, width: int, pad: bool = False) -> tuple:
+    """ASCII digits of non-negative ints ``v`` in ``width`` columns and
+    the mask keeping them (leading zeros dropped unless ``pad``); up to
+    five digits through a table of every value."""
+    v = np.asarray(v, np.int64)
+    if width <= 5 and v.shape[0] > 10 ** width:
+        digits, keep = _num(np.arange(10 ** width), width, pad)
+        return digits[v], keep[v]
+    p10 = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return ((48 + (v[:, None] // p10) % 10).astype(np.uint8),
+            (v[:, None] >= p10) | (p10 == 1) | pad)
+
+
+def _text(n: int, s: str) -> tuple:
+    b = np.frombuffer(s.encode(), np.uint8)
+    return np.broadcast_to(b, (n, b.size)), np.ones((n, b.size), bool)
+
+
+def _cents(c) -> list:
+    """``c / 100`` written as ``int.dd``."""
+    return [_num(c // 100, 2), _text(len(c), "."), _num(c % 100, 2, True)]
+
+
+def write_digit_csv(path, header: str, cells: list, n: int) -> int:
+    """Write ``n`` rows by digit arithmetic (``np.savetxt`` takes minutes
+    at 2^25 rows): each of ``cells`` maps a row slice to its cell's
+    (digits, mask) pieces.  Returns the bytes written."""
+    size = 0
+    with open(path, "wb") as f:
+        f.write(header.encode() + b"\n")
+        for lo in range(0, n, 1 << 22):
+            s = slice(lo, min(n, lo + (1 << 22)))
+            rows = s.stop - s.start
+            pieces = []
+            for i, cell in enumerate(cells):
+                if i:
+                    pieces.append(_text(rows, ","))
+                pieces += cell(s)
+            pieces.append(_text(rows, "\n"))
+            mat = np.concatenate([m for m, _k in pieces], axis=1)
+            keep = np.concatenate([np.broadcast_to(k, m.shape)
+                                   for m, k in pieces], axis=1)
+            body = mat[keep].tobytes()
+            size += len(body)
+            f.write(body)
+    return size
+
+
+def make_stream_data() -> tuple:
+    """The stream's arrays from SEED: ``price`` whole cents in [0, 100)
+    (its text round-trips to f32), ``quantity`` in [0, 32), ``k`` in
+    [0, 65536); and the side files' string codes and wide keys."""
+    rng = np.random.default_rng(SEED)
+    cents = rng.integers(0, 10_000, ROWS)
+    d = {"cents": cents,
+         "price": (cents / 100).astype(np.float32),
+         "quantity": rng.integers(0, GROUP_SLOTS, ROWS),
+         "k": rng.integers(0, KEY_SLOTS, ROWS)}
+    side = np.random.default_rng(SEED + 2)
+    d["c"] = side.integers(0, STREAM_STRINGS, STREAM_SIDE_ROWS)
+    d["k64"] = (1 << 40) + side.integers(0, 4096, STREAM_SIDE_ROWS)
+    return d
+
+
+def expected_stream(d: dict, dimk: dict) -> dict:
+    """NumPy answers of STREAM_QUERIES, one array per result column."""
+    from warpdb_tpu_torch.ops.hll import hll_estimate_np
+
+    p, qi, ki = d["price"], d["quantity"], d["k"]
+    p64 = p.astype(np.float64)
+    f = np.float32
+    keys_q = np.arange(GROUP_SLOTS)
+    mins = np.full(GROUP_SLOTS, np.inf, np.float32)
+    maxs = np.full(GROUP_SLOTS, -np.inf, np.float32)
+    np.minimum.at(mins, qi, p)
+    np.maximum.at(maxs, qi, p)
+    occ_k = np.bincount(ki, minlength=KEY_SLOTS) > 0
+    hot50 = p > f(50)
+    hot999 = p > f(99.9)
+    pair_g, _v = np_distinct_pairs(qi, ki, KEY_SLOTS)
+    regs = np_hll_registers(qi, _fsk(ki.astype(np.float32)), GROUP_SLOTS)
+    dk = dimk["k"].astype(np.int64)
+    cnt = np.bincount(dk, minlength=DIMK_KEYS)
+    wsum = np.bincount(dk, weights=dimk["w"].astype(np.float64),
+                       minlength=DIMK_KEYS)
+    hot = p > f(99)
+    avg = (np.bincount(qi[hot], weights=p64[hot], minlength=GROUP_SLOTS)
+           / np.maximum(np.bincount(qi[hot], minlength=GROUP_SLOTS), 1))
+    dev = p[hot] - avg.astype(np.float32)[qi[hot]]
+    sp = p[:STREAM_SIDE_ROWS].astype(np.float64)
+    k64s, k64i = np.unique(d["k64"], return_inverse=True)
+    kn = ki[:STREAM_SIDE_ROWS]
+    occ_n = np.bincount(kn, minlength=KEY_SLOTS) > 0
+    s50 = p64[hot50].sum()
+    return {
+        "s_expr": [np.where(p > f(15), p * qi.astype(np.float32), f(0))],
+        "s_group_q": [keys_q, np.bincount(qi, minlength=GROUP_SLOTS),
+                      np.bincount(qi, weights=p64, minlength=GROUP_SLOTS),
+                      mins, maxs],
+        "s_group_k": [np.flatnonzero(occ_k),
+                      np.bincount(ki, weights=p64,
+                                  minlength=KEY_SLOTS)[occ_k]],
+        # Counts come back as f32, as in memory (exact up to 2^24).
+        "s_global": [[f(hot50.sum())], [s50], [s50 / hot50.sum()]],
+        "s_topk": [np.sort(p)[::-1][:5]],
+        "s_limit": [p[hot999][:100], ki[hot999][:100]],
+        "s_distinct": [keys_q],
+        "s_count_distinct": [keys_q, np_distinct_counts(pair_g)],
+        "s_hll": [keys_q, hll_estimate_np(regs)],
+        "s_join_dimk": [keys_q, np.bincount(qi, weights=p64 * wsum[ki],
+                                            minlength=GROUP_SLOTS)],
+        "s_join_left": [[f(cnt[ki].sum())]],
+        "s_window": [np.sort(dev)[::-1][:10]],
+        "s_strings": [[f"c{i:03d}" for i in range(STREAM_STRINGS)],
+                      np.bincount(d["c"], weights=sp,
+                                  minlength=STREAM_STRINGS)],
+        "s_int64_wide": [[int(x) for x in k64s], np.bincount(k64i),
+                         np.bincount(k64i, weights=sp)],
+        "s_int64_narrow": [[int(x) for x in np.flatnonzero(occ_n)],
+                           np.bincount(kn, minlength=KEY_SLOTS)[occ_n],
+                           np.bincount(kn, weights=sp,
+                                       minlength=KEY_SLOTS)[occ_n]],
+    }
+
+
+def check_stream(name: str, got, want: list) -> float:
+    """A streamed answer against NumPy, column by column: exact (values,
+    counts, keys, strings, row order), or within SUM_RTOL of float64 for
+    STREAM_SUMS.  Returns the largest absolute error."""
+    cols = list(got.values()) if isinstance(got, dict) else [got]
+    if len(cols) != len(want):
+        raise AssertionError(f"{name}: {len(cols)} columns")
+    err = 0.0
+    for i, (g, w) in enumerate(zip(cols, want)):
+        what = f"{name}[{i}]"
+        if len(g) != len(w):
+            raise AssertionError(f"{what}: {len(g)} values, want {len(w)}")
+        if isinstance(w, list) and w and not isinstance(w[0], float):
+            if list(g) != list(w):  # strings, wide keys: exact
+                raise AssertionError(f"{what}: differs")
+            continue
+        g = np.asarray(g, np.float64)
+        w = np.asarray(w, np.float64)
+        if name == "s_window":
+            g = np.sort(g)[::-1]  # near-equal deviations may swap
+        if i in STREAM_SUMS.get(name, ()):
+            np.testing.assert_allclose(g, w, rtol=SUM_RTOL, err_msg=what)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=what)
+        if g.size:
+            err = max(err, float(np.max(np.abs(g - w))))
+    return err
+
+
+@contextlib.contextmanager
+def native_library(tmp: pathlib.Path):
+    """The native CSV library, built by ``make`` from a copy of
+    ``native/`` in ``tmp`` and loaded from there for the stream; the
+    loader's state is restored on leaving, and the checkout is untouched.
+    Yields the build time in seconds."""
+    from warpdb_tpu_torch.interchange import native as native_mod
+
+    src = pathlib.Path(__file__).resolve().parent / "native"
+    t0 = time.perf_counter()
+    shutil.copytree(src, tmp / "native",
+                    ignore=shutil.ignore_patterns("*.so"))
+    subprocess.run(["make", "-s", "-C", str(tmp / "native")], check=True)
+    lib = ctypes.CDLL(str(tmp / "native" / "libwarpdb_native.so"))
+    native_mod._configure(lib)
+    saved = native_mod._lib, native_mod._lib_checked
+    native_mod._lib, native_mod._lib_checked = lib, True
+    try:
+        yield time.perf_counter() - t0
+    finally:
+        native_mod._lib, native_mod._lib_checked = saved
+
+
+def check_stream_kernels(first, dimk: dict) -> dict:
+    """K2 and K3 at the stream's chunk shapes, on the first chunk's
+    columns, against their plain versions.  K2 as ``GROUP BY k`` gives
+    it: int32 ids at the chunk's row count, 65536 slots, the price
+    (counts exact, sums within SUM_RTOL of plain and float64).  K3 as
+    the joins against ``dimk`` give it: int64 exclusive offsets of each
+    row's matches (0-3); INNER gathers price, quantity and the build
+    slot, LEFT the build slot and the match counts with every row
+    emitting at least once (bit for bit).  These launches count for no
+    path.  Returns the largest absolute errors."""
+    from warpdb_tpu_torch.ops import expand
+    from warpdb_tpu_torch.ops import group_kernel as group
+
+    err = {"group_hist": 0.0, "windowed_expand": 0.0}
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    price = first.get_column("price").data
+    quantity = first.get_column("quantity").data
+    k = first.get_column("k").data.astype(np.int64)
+    gid = k.astype(np.int32)
+    _check_group(group, gid, cuda(gid), [price], [cuda(price)], KEY_SLOTS,
+                 f"stream chunk n={gid.shape[0]}", err, {})
+    log(f"K2 stream chunk n={gid.shape[0]} slots={KEY_SLOTS} nv=1: counts "
+        f"exact, sums within rtol {SUM_RTOL} of plain and float64")
+    cnt = np.bincount(dimk["k"].astype(np.int64), minlength=KEY_SLOTS)
+    counts = cnt[k]
+    lo32 = cuda((np.cumsum(cnt) - cnt)[k].astype(np.int32))
+    for kind, emit, cols in (
+            ("INNER", counts, [cuda(price), cuda(quantity), lo32]),
+            ("LEFT", np.maximum(counts, 1),
+             [lo32, cuda(counts.astype(np.int32))])):
+        off = cuda(np.cumsum(emit) - emit)
+        total = int(emit.sum())
+        _o, dup, taken = expand.windowed_expand(off, cols, total)
+        _po, pdup, ptaken = expand.windowed_expand_plain(off, cols, total,
+                                                         False)
+        torch.cuda.synchronize()
+        err["windowed_expand"] = max(
+            err["windowed_expand"],
+            _bit_err(taken + (dup,), ptaken + (pdup,),
+                     f"K3 stream chunk {kind}"))
+        log(f"K3 stream chunk {kind} n={k.shape[0]} total={total} "
+            f"C={len(cols)}: dup and columns equal to plain bit for bit")
+    return err
+
+
+def phase_streaming(WarpDB, HostTable, kernels: dict, dimk: dict,
+                    name: str, tmp: pathlib.Path) -> tuple:
+    """Out-of-core streaming through the facade's ``query_streaming_csv``
+    / ``query_streaming_sql``: STREAM_QUERIES over a 2^25-row CSV in
+    chunks of 10^6 rows (and the two side files), each checked against
+    NumPy; per statement its K1-K5 launches, chunks, the median of 3 warm
+    runs, the parser wait, the device time (CUDA events), the host merge
+    and the peak device memory above the start.  K2 must launch once a
+    chunk in ``s_group_k``, a join kernel in each join statement, the
+    narrow int64 stream must be read once, and no peak may reach half the
+    file's device bytes.  K2 and K3 are first held to their plain
+    versions at the chunk's shapes.  Runs inside :func:`native_library`.
+    Returns ``(launches, run, queries, max errors of K2 and K3, the
+    first chunk)``."""
+    from warpdb_tpu_torch.interchange import native as native_mod
+    from warpdb_tpu_torch.parallel import last_stream_stats, run_streaming_csv
+    from warpdb_tpu_torch.storage import DataType, padded_length
+    from warpdb_tpu_torch.storage.chunks import iter_table_chunks
+
+    t_phase = time.perf_counter()
+    if not native_mod.has_native_stream():
+        raise AssertionError("streaming: the native CSV stream did not load")
+    log("streaming: parse backend: native prefetching stream (all-f32 "
+        "file), Python parser (side files)")
+
+    t0 = time.perf_counter()
+    d = make_stream_data()
+    path, spath, wpath, npath = (tmp / "stream.csv", tmp / "strings.csv",
+                                 tmp / "wide.csv", tmp / "narrow.csv")
+    size = write_digit_csv(path, "price,quantity,k", [
+        lambda s: _cents(d["cents"][s]), lambda s: [_num(d["quantity"][s], 2)],
+        lambda s: [_num(d["k"][s], 5)]], ROWS)
+    write_digit_csv(spath, "price,c", [
+        lambda s: _cents(d["cents"][s]),
+        lambda s: [_text(s.stop - s.start, "c"), _num(d["c"][s], 3, True)]],
+        STREAM_SIDE_ROWS)
+    write_digit_csv(wpath, "price,k64", [
+        lambda s: _cents(d["cents"][s]), lambda s: [_num(d["k64"][s], 13)]],
+        STREAM_SIDE_ROWS)
+    write_digit_csv(npath, "price,kn", [
+        lambda s: _cents(d["cents"][s]), lambda s: [_num(d["k"][s], 5)]],
+        STREAM_SIDE_ROWS)
+    log(f"streaming: wrote {ROWS} rows, {size} bytes, and three "
+        f"{STREAM_SIDE_ROWS}-row side files in {time.perf_counter() - t0!r} s")
+    it = iter_table_chunks(str(path), STREAM_CHUNK)
+    first = next(it)
+    it.close()
+    for col, arr in (("price", d["price"]), ("quantity", d["quantity"]),
+                     ("k", d["k"])):
+        parsed = first.get_column(col).data
+        if not np.array_equal(parsed.view(np.uint32), np.asarray(
+                arr[:STREAM_CHUNK], np.float32).view(np.uint32)):
+            raise AssertionError(f"streaming: {col} did not parse back "
+                                 "bit for bit")
+    t0 = time.perf_counter()
+    want = expected_stream(d, dimk)
+    log(f"streaming: the first chunk parses back bit for bit; NumPy oracle "
+        f"{time.perf_counter() - t0!r} s")
+    err = check_stream_kernels(first, dimk)
+
+    dims = {"dimk": HostTable.from_dict(dimk)}
+    schemas = {"strings": (spath, [DataType.FLOAT32, DataType.STRING]),
+               "wide": (wpath, [DataType.FLOAT32, DataType.INT64]),
+               "narrow": (npath, [DataType.FLOAT32, DataType.INT64])}
+
+    def run(kind, q):
+        if kind == "expr":
+            return run_streaming_csv(str(path), q, STREAM_CHUNK,
+                                     device="cuda")
+        if kind in schemas:
+            p, schema = schemas[kind]
+            return WarpDB.query_streaming_sql(str(p), q, STREAM_CHUNK,
+                                              schema=schema, device="cuda")
+        return WarpDB.query_streaming_sql(
+            str(path), q, STREAM_CHUNK, device="cuda",
+            dims=dims if kind == "join" else None)
+
+    one_chunk = 12 * padded_length(STREAM_CHUNK)
+    whole = 12 * ROWS
+    launches = {k: 0 for k in kernels}
+    log(f"streaming on {name} (wall: host clock, call to the host result, "
+        "median of 3 warm runs unless marked; parser wait, device time and "
+        f"merge of that run; peak device memory above the start, one "
+        f"chunk {one_chunk} B, the file {whole} B on the device):")
+    for n, kind, q in STREAM_QUERIES:
+        before = {k: fn.launches for k, fn in kernels.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = run(kind, q)
+        torch.cuda.synchronize()
+        first_wall = time.perf_counter() - t0
+        per = {k: fn.launches - before[k] for k, fn in kernels.items()
+               if fn.launches > before[k]}
+        for k, c in per.items():
+            launches[k] += c
+        e = check_stream(n, got, want[n])
+        runs = [(first_wall, last_stream_stats())]
+        chunks = runs[0][1].chunks
+        if kind != "once":
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(kind, q)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0, last_stream_stats()))
+        peak = torch.cuda.max_memory_allocated() - base
+        wall, st = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
+        if n == "s_expr":
+            facade = WarpDB.query_streaming_csv(str(path), q, STREAM_CHUNK,
+                                                device="cuda")
+            if facade != got.tolist():
+                raise AssertionError("s_expr: the facade's list differs")
+        log(f"stream {n}: agrees with numpy (max abs err {e!r}; launches "
+            f"{per}); chunks {chunks}"
+            + (f" (+{st.prepass_chunks} pre-pass)" if st.prepass_chunks else "")
+            + f"; wall {wall * 1e3!r} ms"
+            + (" (one run, timed once)" if kind == "once" else "")
+            + f", {st.rows} rows read = {st.rows / wall / 1e6!r} M rows/s; "
+            f"parser wait "
+            f"{st.parse_s * 1e3!r} ms, device {st.device_ms!r} ms, merge "
+            f"{st.merge_s * 1e3!r} ms; peak {peak} B [{name}] — {q}")
+        if n == "s_group_k" and per.get("group_hist") != chunks:
+            raise AssertionError(f"s_group_k: K2 launched "
+                                 f"{per.get('group_hist')} times in {chunks} "
+                                 "chunks")
+        if n == "s_int64_narrow" and st.prepass_chunks != 1:
+            raise AssertionError(f"s_int64_narrow: {st.prepass_chunks} "
+                                 "pre-pass chunks (one fixes the schema)")
+        if kind == "join" and not any(per.get(k) for k in (
+                "windowed_expand", "uniform_expand", "sorted_take")):
+            raise AssertionError(f"{n}: no join kernel launched")
+        if peak >= whole // 2:
+            raise AssertionError(f"{n}: peak device memory {peak} B holds "
+                                 "half the file")
+        del got
+    log(f"streaming launches: {launches}; phase "
+        f"{time.perf_counter() - t_phase!r} s")
+    return launches, run, [(kind, n, q) for n, kind, q in STREAM_QUERIES
+                           if n in ("s_group_k", "s_join_dimk")], err, first
+
+
+def phase_uploads(tables: dict, name: str) -> None:
+    """Each table's columns (as a ``DeviceTable`` holds them: padded,
+    strings as codes) to the card two ways: ``storage.table._upload``,
+    what ``DeviceTable.from_host`` does on a card (a page-locked stage
+    and a non-blocking copy), and a pageable copy (a zero-padded NumPy
+    buffer, ``torch.from_numpy(buf).to("cuda")``).  Per table the first
+    call of each way (pageable first), then the median of 3 more of
+    each, alternating; each call synchronised."""
+    from warpdb_tpu_torch.storage.table import _upload
+
+    dev = torch.device("cuda")
+
+    def pageable(a, n, padded):
+        buf = np.zeros(padded, dtype=a.dtype)
+        buf[:n] = a[:n]
+        return torch.from_numpy(buf).to(dev)
+
+    ways = {"pageable": pageable,
+            "stage": lambda a, n, padded: _upload(a, n, padded, dev)}
+    log(f"uploads on {name} (host clock, synchronised; first call, then "
+        "median of 3):")
+    for what, dt in tables.items():
+        cols = [t.cpu().numpy() for t in dt.columns.values()]
+        n, padded = dt.num_rows, dt.padded_rows
+        times = {w: [] for w in ways}
+        for way in ("pageable", "stage", "stage", "pageable", "pageable",
+                    "stage", "stage", "pageable"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [ways[way](a, n, padded) for a in cols]
+            torch.cuda.synchronize()
+            times[way].append(time.perf_counter() - t0)
+            del out
+        log(f"  upload {what} ({len(cols)} columns, "
+            f"{sum(a.nbytes for a in cols)} B): " + "; ".join(
+                f"{w} first {ts[0] * 1e3!r} ms, median "
+                f"{sorted(ts[1:])[1] * 1e3!r} ms" for w, ts in times.items())
+            + f" [{name}]")
+
+
 def phase_profile(run, queries, name: str) -> None:
     """One profiled warm run per slice query (torch.profiler, CPU and
     CUDA activities): profiled wall, card-busy time (the union of the
@@ -1569,9 +2045,10 @@ def phase_ptxas(_build) -> None:
 def main(argv: list) -> int:
     profile = "--profile" in argv
     kernels_only = "--kernels" in argv
-    if set(argv) - {"--profile", "--kernels"}:
-        print("usage: python3 chip_smoke.py [--profile | --kernels]",
-              file=sys.stderr)
+    stream_only = "--stream" in argv
+    if set(argv) - {"--profile", "--kernels", "--stream"}:
+        print("usage: python3 chip_smoke.py [--profile | --kernels | "
+              "--stream]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1581,7 +2058,7 @@ def main(argv: list) -> int:
     from warpdb_tpu_torch.ops import expand
     from warpdb_tpu_torch.ops import group_kernel as group
     from warpdb_tpu_torch.ops import topk_kernel as topk
-    from warpdb_tpu_torch.storage import HostTable
+    from warpdb_tpu_torch.storage import DeviceTable, HostTable
 
     name = card()
     log(f"card: {name}")
@@ -1592,6 +2069,25 @@ def main(argv: list) -> int:
     libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])}) "
         + ", ".join(f"{k}={v}" for k, v in libs.items()))
+    kernels = {"topk": topk.topk_candidates,
+               "group_hist": group.group_counts_sums,
+               "windowed_expand": expand.windowed_expand,
+               "uniform_expand": expand.uniform_expand,
+               "sorted_take": expand.sorted_take}
+    if stream_only:
+        with tempfile.TemporaryDirectory(prefix="warpdb_stream_") as tmp, \
+                native_library(pathlib.Path(tmp)) as t_native:
+            log(f"streaming: native CSV library built in {t_native!r} s")
+            _l, srun, sq, _e, chunk = phase_streaming(
+                WarpDB, HostTable, kernels, make_join_tables()["dimk"], name,
+                pathlib.Path(tmp))
+            if profile:
+                phase_profile(srun, sq, name)
+        phase_uploads({
+            "bench 2^25 rows": DeviceTable.from_host(
+                HostTable.from_dict(make_table()), device="cpu"),
+            "stream chunk": DeviceTable.from_host(chunk, device="cpu")}, name)
+        return 0
 
     # With --profile the kernel phase opens no profiler session: after
     # those sessions, every later one of a --profile run traced no device
@@ -1651,11 +2147,6 @@ def main(argv: list) -> int:
     queries = [("expr", n, q) for n, q in EXPR_QUERIES] + [
         ("sql", n, q) for n, q in SQL_QUERIES
     ]
-    kernels = {"topk": topk.topk_candidates,
-               "group_hist": group.group_counts_sums,
-               "windowed_expand": expand.windowed_expand,
-               "uniform_expand": expand.uniform_expand,
-               "sorted_take": expand.sorted_take}
 
     def run_counted(qs) -> tuple:
         """Each query's result and the kernel launches it made."""
@@ -1741,6 +2232,24 @@ def main(argv: list) -> int:
     for k, c in surf_launches.items():
         launches[k] += c
     log(f"surfaces phase: {time.perf_counter() - t0!r} s")
+
+    # The stream's files and the native library live in a directory of
+    # their own, removed at the end (about 0.5 GB).
+    with tempfile.TemporaryDirectory(prefix="warpdb_stream_") as tmp, \
+            native_library(pathlib.Path(tmp)) as t_native:
+        log(f"streaming: native CSV library built in {t_native!r} s")
+        (stream_launches, stream_run, stream_queries, serr,
+         chunk) = phase_streaming(WarpDB, HostTable, kernels, jtabs["dimk"],
+                                  name, pathlib.Path(tmp))
+        for k, c in stream_launches.items():
+            launches[k] += c
+        for k, e in serr.items():
+            err[k] = max(err[k], e)
+        if profile:
+            phase_profile(stream_run, stream_queries, name)
+    phase_uploads({"bench 2^25 rows": db.table,
+                   "stream chunk": DeviceTable.from_host(chunk, device="cpu"),
+                   **{f"tpch {t}": tdb._catalog[t] for t in ttables}}, name)
 
     if profile:
         phase_profile(run, queries + join_queries, name)

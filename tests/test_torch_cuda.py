@@ -745,3 +745,36 @@ def test_explain_names_the_kernels_that_launch(surface_dbs, sql, k2, k1):
            topk_kernel.topk_candidates.launches > before[1])
     assert ("K2 shared-memory" in plan, "K1 top-k kernel" in plan) == (k2, k1)
     assert ran == (k2, k1), plan
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT k, SUM(price) AS s, COUNT(*) AS n FROM t GROUP BY k",
+    "SELECT price, k FROM t WHERE price > 99 ORDER BY price DESC, k ASC "
+    "LIMIT 20",
+])
+def test_stream_on_card_matches_cpu(cuda, tmp_path, sql):
+    """A grouped statement (K2 once a chunk) and a per-row top-k stream
+    from a CSV on the card and on the CPU; the expression stream too."""
+    rng = np.random.default_rng(8)
+    n = 20_000
+    price = rng.integers(0, 10_000, n) / 100
+    k = rng.integers(0, 5000, n)
+    path = tmp_path / "s.csv"
+    path.write_text("price,k\n" + "".join(
+        f"{p:.2f},{q}\n" for p, q in zip(price, k)))
+    before = group_kernel.group_counts_sums.launches
+    gpu = WarpDB.query_streaming_sql(str(path), sql, 3000, device="cuda")
+    torch.cuda.synchronize()
+    if "GROUP BY" in sql:
+        assert group_kernel.group_counts_sums.launches == before + 7
+    cpu = WarpDB.query_streaming_sql(str(path), sql, 3000, device="cpu")
+    assert list(gpu) == list(cpu)
+    for name in cpu:
+        if name == "s":
+            np.testing.assert_allclose(gpu[name], cpu[name], rtol=1e-5)
+        else:
+            assert gpu[name] == cpu[name], name
+    expr = "price * k WHERE price > 50"
+    assert (WarpDB.query_streaming_csv(str(path), expr, 3000, device="cuda")
+            == WarpDB.query_streaming_csv(str(path), expr, 3000,
+                                          device="cpu"))

@@ -229,3 +229,166 @@ def test_arrow_table_export_matches_reference():
     empty = {"s": [], "f": np.zeros(0, np.float32)}
     assert _exported(ax, ax.export_table_to_arrow_capsules, empty) == (
         _exported(ref_ax, ref_ax.export_table_to_arrow_capsules, empty))
+
+
+# --- storage/chunks.py and DeviceTable.from_host(dicts_override=…) --------
+
+
+def _chunk_files(tmp_path) -> dict:
+    """One file per format the stream reads, written from a seed (the
+    tests of ``tests/test_storage.py:46,58,150,171`` and
+    ``tests/test_native.py:88,104,125``)."""
+    rng = np.random.default_rng(12)
+    files = {}
+    p = tmp_path / "chunked.csv"
+    p.write_text("a,b\n" + "".join(f"{i},{i * 2}\n" for i in range(10)))
+    files["csv"] = (p, 3)
+    vals = rng.uniform(0, 100, (5000, 2))
+    p = tmp_path / "s2.csv"
+    p.write_text("x,y\n" + "".join(f"{a:.4f},{b:.4f}\n" for a, b in vals))
+    files["csv_5000"] = (p, 1024)
+    p = tmp_path / "blank.csv"
+    p.write_text("x,y\n1,2\n\n3,4\r\n5,6")
+    files["csv_blank_lines"] = (p, 2)
+    p = tmp_path / "t.ndjson"
+    p.write_text("\n".join(
+        f'{{"price": {i}.5, "quantity": {i % 3}, "s": "v{i % 4}"}}'
+        for i in range(10)) + "\nnot json\n")
+    files["ndjson"] = (p, 4)
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:
+        return files
+    t = pa.table({"price": np.arange(5000, dtype=np.float32),
+                  "quantity": (np.arange(5000) % 7).astype(np.int32),
+                  "s": [f"k{i % 5}" for i in range(5000)]})
+    p = tmp_path / "t.parquet"
+    pq.write_table(t, p, row_group_size=1200)
+    files["parquet"] = (p, 800)
+    p = tmp_path / "t.arrow"
+    with pa.OSFile(str(p), "wb") as sink:
+        with pa.ipc.new_file(sink, t.schema) as writer:
+            for b in t.to_batches(max_chunksize=1500):
+                writer.write_batch(b)
+    files["arrow"] = (p, 1000)
+    import pyarrow.orc as orc
+
+    p = tmp_path / "t.orc"
+    orc.write_table(t, str(p))
+    files["orc"] = (p, 2048)
+    return files
+
+
+FORMATS = ["csv", "csv_5000", "csv_blank_lines", "ndjson", "parquet",
+           "arrow", "orc"]
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_table_chunks_match_reference(tmp_path, fmt):
+    from warpdb_tpu.storage import chunks as ref_chunks
+    from warpdb_tpu_torch.storage import chunks
+
+    files = _chunk_files(tmp_path)
+    if fmt not in files:
+        pytest.skip("pyarrow is not installed")
+    path, rows = files[fmt]
+    assert chunks.table_column_names(str(path)) == (
+        ref_chunks.table_column_names(str(path)))
+    got = list(chunks.iter_table_chunks(str(path), rows))
+    want = list(ref_chunks.iter_table_chunks(str(path), rows))
+    assert [c.num_rows for c in got] == [c.num_rows for c in want]
+    assert max(c.num_rows for c in got) <= rows
+    for g, w in zip(got, want):
+        assert isinstance(g, storage.HostTable)
+        _same_host(g, w)
+
+
+def test_table_chunks_schema_and_errors_match_reference(tmp_path):
+    from warpdb_tpu.storage import chunks as ref_chunks
+    from warpdb_tpu_torch.storage import chunks
+
+    p = tmp_path / "k.csv"
+    p.write_text("k,v,s\n" + "".join(f"{2**40 + i},{i}.5,c{i % 3}\n"
+                                     for i in range(7)))
+    got = list(chunks.iter_table_chunks(
+        str(p), 3, [storage.DataType.INT64, storage.DataType.FLOAT32,
+                    storage.DataType.STRING]))
+    want = list(ref_chunks.iter_table_chunks(
+        str(p), 3, [ref_storage.DataType.INT64,
+                    ref_storage.DataType.FLOAT32,
+                    ref_storage.DataType.STRING]))
+    for g, w in zip(got, want):
+        _same_host(g, w)
+    bad = tmp_path / "bad.csv"
+    bad.write_text("a,b\n1,2\nxx,4\n")
+    cases = [(str(bad), 10), (str(tmp_path / "none.csv"), 10),
+             (str(p), 0), (str(tmp_path / "t.xlsx"), 10)]
+    (tmp_path / "t.xlsx").write_text("")
+    for path, rows in cases:
+        with pytest.raises(Exception) as g:
+            list(chunks.iter_table_chunks(path, rows))
+        with pytest.raises(Exception) as w:
+            list(ref_chunks.iter_table_chunks(path, rows))
+        assert type(g.value).__name__ == type(w.value).__name__
+        assert str(g.value) == str(w.value)
+    for path in (str(tmp_path / "none.csv"), str(tmp_path / "t.xlsx")):
+        with pytest.raises(Exception) as g:
+            chunks.table_column_names(path)
+        with pytest.raises(Exception) as w:
+            ref_chunks.table_column_names(path)
+        assert type(g.value).__name__ == type(w.value).__name__
+        assert str(g.value) == str(w.value)
+
+
+def test_dicts_override_errors_match_reference():
+    from warpdb_tpu.storage.table import DeviceTable as RefDeviceTable
+    from warpdb_tpu_torch.storage.table import DeviceTable
+
+    cols = {"s": np.array(["fig", "kiwi", "fig"], dtype=object),
+            "v": np.float32([1, 2, 3])}
+    dtypes = {"s": "STRING"}
+    port = storage.HostTable.from_dict(
+        cols, {k: getattr(storage.DataType, t) for k, t in dtypes.items()})
+    ref = ref_storage.HostTable.from_dict(
+        cols, {k: getattr(ref_storage.DataType, t)
+               for k, t in dtypes.items()})
+    vocab = np.array(["apple", "fig", "kiwi"])
+    dt = DeviceTable.from_host(port, device="cpu",
+                               dicts_override={"s": vocab})
+    rdt = RefDeviceTable.from_host(ref, dicts_override={"s": vocab})
+    assert dt.columns["s"][:3].tolist() == np.asarray(
+        rdt.columns["s"])[:3].tolist() == [1, 2, 1]
+    assert dt.dicts["s"] is vocab
+    assert dataclasses.astuple(dt.stats["s"]) == dataclasses.astuple(
+        rdt.stats["s"])
+    short = np.array(["apple", "fig"])
+    with pytest.raises(errors.ValidationError) as got:
+        DeviceTable.from_host(port, device="cpu",
+                              dicts_override={"s": short})
+    with pytest.raises(ref_errors.ValidationError) as want:
+        RefDeviceTable.from_host(ref, dicts_override={"s": short})
+    assert str(got.value) == str(want.value)
+
+    # A wide int64 column without a vocabulary of its own in the
+    # override is refused, as the reference refuses every wide column
+    # with an override.
+    wide = {"k": np.array([2**40, 5], np.int64), "s": np.array(["a", "b"])}
+    port = storage.HostTable.from_dict(wide)
+    ref = ref_storage.HostTable.from_dict(wide)
+    strs = {"s": np.array(["a", "b"])}
+    with pytest.raises(errors.ValidationError) as got:
+        DeviceTable.from_host(port, device="cpu", dicts_override=strs)
+    with pytest.raises(ref_errors.ValidationError) as want:
+        RefDeviceTable.from_host(ref, dicts_override=strs)
+    assert str(got.value) == str(want.value)
+    # With one, it encodes against it, narrow values included; a value
+    # missing from it is refused.
+    kv = np.array([5, 7, 2**40], np.int64)
+    dt = DeviceTable.from_host(port, device="cpu",
+                               dicts_override={**strs, "k": kv})
+    assert dt.columns["k"][:2].tolist() == [2, 0]
+    assert dt.dicts["k"] is kv
+    with pytest.raises(errors.ValidationError, match="int64 column 'k'"):
+        DeviceTable.from_host(port, device="cpu",
+                              dicts_override={**strs, "k": kv[1:]})

@@ -44,6 +44,11 @@ table = db.query_sql_table(
     "test.quantity) ORDER BY price DESC")
 assert table == {"price": [20.0], "quantity": [4.0]}, table
 assert db.query_sql("SELECT COUNT(*) FROM test GROUP BY quantity") == [1.0] * 4
+streamed = WarpDB.query_streaming_sql(
+    "data/test.csv", "SELECT quantity, SUM(price) AS s FROM t GROUP BY "
+    "quantity", rows_per_chunk=3, device="cpu")
+assert streamed == {"quantity": [2.0, 3.0, 4.0, 5.0],
+                    "s": [15.25, 10.5, 20.0, 30.0]}, streamed
 for name in BLOCKED:
     assert sys.modules[name] is None
 print("ok")
@@ -51,9 +56,9 @@ print("ok")
 
 
 def _run_blocked(*modules: str) -> None:
-    """The slice (a GROUP BY, top-k, joins, subqueries, a CTE and a set
-    operation) on the CPU in a fresh interpreter with ``modules``
-    blocked."""
+    """The slice (a GROUP BY, top-k, joins, subqueries, a CTE, a set
+    operation and a streamed GROUP BY) on the CPU in a fresh interpreter
+    with ``modules`` blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", f"BLOCKED = {modules!r}\n" + _BLOCKED],
         cwd=REPO, capture_output=True, text=True, timeout=120,

@@ -301,8 +301,9 @@ def test_other_entry_points_raise():
     port = PortDB("data/test.csv", device="cpu")
     with pytest.raises(UnsupportedError, match="mesh"):
         port.query_sharded("price")
-    with pytest.raises(UnsupportedError, match="Streaming"):
-        PortDB.query_streaming_sql("data/test.csv", "SELECT price FROM t")
+    with pytest.raises(UnsupportedError, match="mesh"):
+        PortDB.query_streaming_sql("data/test.csv", "SELECT price FROM t",
+                                   mesh=object(), device="cpu")
 
 
 def test_kernels_reached_by_the_main_path(dbs):

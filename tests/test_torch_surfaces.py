@@ -597,7 +597,9 @@ def test_cli_demo_and_profile(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "Filtered rows (price > 25.0): 1" in out
     assert "Revenue[3] = 150.0  Adjusted[3] = 135.0" in out
-    assert "not supported by warpdb_tpu_torch yet" in out
+    assert "Sharded run: Multi-device execution (mesh) is not supported by "\
+        "warpdb_tpu_torch yet" in out
+    assert "Streamed result rows: 4" in out
     assert "Result[3] = 30.0" in out
     assert (tmp_path / "trace.json").exists()
 

@@ -196,8 +196,8 @@ def _repl(data_file: str, device=None) -> int:
 
 def _run_demo(data_file: str, device=None) -> None:
     """The demo pipeline: print rows, a filter count, revenue projections
-    (single and dual output), then the sharded and streamed runs, which
-    report that the port does not run them yet."""
+    (single and dual output), the sharded run, which reports that the
+    port does not run it yet, and the streamed run on the same device."""
     from .api import WarpDB
     from .errors import UnsupportedError
 
@@ -224,12 +224,10 @@ def _run_demo(data_file: str, device=None) -> None:
         except UnsupportedError as e:
             print(f"Sharded run: {e}")
         if str(data_file).endswith(".csv"):
-            try:
-                streamed = WarpDB.query_streaming_csv(
-                    data_file, "price * quantity", rows_per_chunk=1024)
-                print(f"Streamed result rows: {len(streamed)}")
-            except UnsupportedError as e:
-                print(f"Streamed run: {e}")
+            streamed = WarpDB.query_streaming_csv(
+                data_file, "price * quantity", rows_per_chunk=1024,
+                device=db.device)
+            print(f"Streamed result rows: {len(streamed)}")
     print("=== demo done ===")
 
 

@@ -8,11 +8,12 @@ aggregates, HAVING, DISTINCT, ORDER BY, LIMIT / OFFSET, plus what
 resolves here: ``WITH`` (CTEs), UNION / EXCEPT / INTERSECT [ALL] and
 CREATE / DROP TABLE|VIEW.  ``explain`` describes the plan (and with
 ``analyze`` runs it); ``query_arrow*`` and ``query_record_batch`` export
-results through the Arrow C Data Interface.  Each query records its
-metrics (``utils/metrics.py``).  The device is explicit: ``device=None``
-means ``"cuda"``, and a missing CUDA device is an error, never a silent
-run on the CPU.  ``device="cpu"`` runs the kernels' plain PyTorch
-versions.
+results through the Arrow C Data Interface; ``query_streaming_csv`` and
+``query_streaming_sql`` stream files larger than the card in chunks.
+Each query records its metrics (``utils/metrics.py``).  The device is
+explicit: ``device=None`` means ``"cuda"``, and a missing CUDA device is
+an error, never a silent run on the CPU.  ``device="cpu"`` runs the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ _DDL_DROP = re.compile(
     r"^\s*DROP\s+(TABLE|VIEW)\s+(IF\s+EXISTS\s+)?([A-Za-z_]\w*)\s*;?\s*$",
     re.IGNORECASE,
 )
+
+
+MESH_REFUSAL = ("Multi-device execution (mesh) is not supported by "
+                "warpdb_tpu_torch yet")
 
 
 def resolve_device(device) -> torch.device:
@@ -766,21 +771,45 @@ class WarpDB:
     def __repr__(self) -> str:
         return f"WarpDB({self._name!r}, {self._table!r})"
 
-    # -- entry points outside the port so far ---------------------------------
-    def query_sharded(self, *args, **kwargs):
-        raise UnsupportedError(
-            "Multi-device execution (mesh) is not supported by "
-            "warpdb_tpu_torch yet"
-        )
+    # -- out-of-core streaming ------------------------------------------------
+    @staticmethod
+    def query_streaming_csv(csv_path: str, expr: str,
+                            rows_per_chunk: Optional[int] = None, mesh=None,
+                            device=None) -> list:
+        """Stream a file in chunks of ``rows_per_chunk`` rows (default
+        ``config.rows_per_chunk``), evaluating ``"<expr> [WHERE <cond>]"``
+        on each chunk on ``device`` (None: the card); one f32 value a
+        row, in row order.  ``mesh`` must be None (multi-device is not
+        ported yet)."""
+        from .parallel.streaming import run_streaming_csv
+
+        return run_streaming_csv(csv_path, expr, rows_per_chunk, mesh=mesh,
+                                 device=device).tolist()
+
+    # The reference's name (warpdb.cpp:544-590).
+    query_multi_gpu_csv = query_streaming_csv
 
     @staticmethod
-    def query_streaming_csv(*args, **kwargs):
-        raise UnsupportedError(
-            "Streaming (out-of-core) execution is not supported by "
-            "warpdb_tpu_torch yet"
-        )
+    def query_streaming_sql(csv_path: str, sql: str,
+                            rows_per_chunk: Optional[int] = None, mesh=None,
+                            dims: Optional[dict] = None,
+                            schema: Optional[Sequence[DataType]] = None,
+                            device=None) -> dict:
+        """Out-of-core SQL: per-chunk aggregation on ``device`` (None:
+        the card) merged on the host, and per-row statements, DISTINCT,
+        COUNT(DISTINCT), APPROX_COUNT_DISTINCT and partition-aggregate
+        windows, over files larger than device memory.  ``dims`` maps
+        table names to in-memory ``HostTable`` dimension tables that the
+        streamed chunks JOIN.  Returns ``{column: list}`` like
+        :meth:`query_sql_table`."""
+        from .parallel.streaming import run_streaming_sql
 
-    query_streaming_sql = query_streaming_csv
+        return run_streaming_sql(csv_path, sql, rows_per_chunk, mesh=mesh,
+                                 schema=schema, dims=dims, device=device)
+
+    # -- entry points outside the port so far ---------------------------------
+    def query_sharded(self, *args, **kwargs):
+        raise UnsupportedError(MESH_REFUSAL)
 
 
 def _capsule_address(capsule) -> int:

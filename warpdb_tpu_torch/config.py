@@ -1,7 +1,7 @@
 """Engine configuration of the port.
 
 Only the fields the port reads.  The thresholds start at the
-reference's values (``warpdb_tpu/config.py:21,28,39-63``); they are
+reference's values (``warpdb_tpu/config.py:21-24,28,39-63``); they are
 v5e-derived and not yet measured on the H100.
 """
 
@@ -17,6 +17,8 @@ __all__ = ["EngineConfig", "get_config", "set_config"]
 class EngineConfig:
     # Padding multiple of device columns (reference pad_multiple).
     pad_multiple: int = 1024
+    # Rows per chunk of the out-of-core stream (reference rows_per_chunk).
+    rows_per_chunk: int = 1_000_000
     # GROUP BY tiers over stats-bounded integral keys: dense up to this
     # many slots (v5e-derived, not yet measured on the H100).
     dense_group_max_slots: int = 4096

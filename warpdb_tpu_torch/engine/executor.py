@@ -430,19 +430,27 @@ def _bind_query_strings(query: Query, table) -> Query:
 
 def run_expression(table, expr: Node, cond: Optional[Node]) -> np.ndarray:
     """Fused filter + projection; exactly ``num_rows`` f32 values
-    (filtered-out rows 0.0).  A provably-false filter skips the device;
-    a provably-true one is dropped."""
+    (filtered-out rows 0.0)."""
+    return run_expression_device(table, expr, cond).cpu().numpy()
+
+
+def run_expression_device(table, expr: Node,
+                          cond: Optional[Node]) -> torch.Tensor:
+    """:func:`run_expression` left on the table's device, unsynchronised
+    (the stream copies it out itself).  A provably-false filter skips
+    the evaluation; a provably-true one is dropped."""
     expr = fold_constants(bind_strings(expr, table))
     if cond is not None:
         cond = fold_constants(bind_strings(cond, table))
         verdict = analyze_condition(cond, table.stats)
         if verdict is False:
-            return np.zeros(table.num_rows, dtype=np.float32)
+            return torch.zeros(table.num_rows, dtype=torch.float32,
+                               device=table.device)
         if verdict is True:
             cond = None
     cols = table.row_columns()
     run = compile_filter_project(expr, cond, cols)
-    return run(cols, table.num_rows).cpu().numpy()
+    return run(cols, table.num_rows)
 
 
 # ---------------------------------------------------------------------------

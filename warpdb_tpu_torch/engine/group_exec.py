@@ -298,8 +298,10 @@ def _grouped_partials(query: Query, table, plan: dict,
                       final: bool = True) -> "_HostGroupResult":
     """The per-group aggregate table (keys, counts, sum/min/max per value
     expression), computed on the device and pulled to the host.
-    ``final=False`` (a streaming chunk's partial) turns APPROX_COUNT_DISTINCT
-    into its mergeable u8 registers."""
+    ``final=False`` (a streaming chunk's partial) keeps every group (no
+    device finish: a chunk's partial aggregates cannot decide HAVING or
+    ORDER BY … LIMIT) and turns APPROX_COUNT_DISTINCT into its mergeable
+    u8 registers."""
     group_keys = plan["group_keys"]
     # LIMIT pushdown of the reference (legal when groups emerge in the
     # default key order): the port slices on the host instead, with the
@@ -319,7 +321,8 @@ def _grouped_partials(query: Query, table, plan: dict,
     )
     device_finish = None
     if (
-        not limit_pushdown
+        final
+        and not limit_pushdown
         and query.limit is not None
         and not query.distinct
         and not plan["cd_specs"]

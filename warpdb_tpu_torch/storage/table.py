@@ -15,7 +15,9 @@ reference's and keeps its rules:
   ``config.f64_policy == "downcast"``;
 * narrow int64 columns become int32 on the device (the reference's
   x64-disabled upload does the same);
-* ``stats`` are the host stats, replaced by code stats for coded columns.
+* ``stats`` are the host stats, replaced by code stats for coded columns;
+* a stream's chunks encode against vocabularies shared by the whole
+  stream (``dicts_override``), string and wide int64 alike.
 """
 
 from __future__ import annotations
@@ -262,9 +264,18 @@ class DeviceTable:
     @classmethod
     def from_host(cls, host: HostTable, device=None,
                   pad_multiple: Optional[int] = None,
-                  keep_host: bool = True) -> "DeviceTable":
+                  keep_host: bool = True,
+                  dicts_override: Optional[dict] = None) -> "DeviceTable":
         """Upload ``host`` to ``device``: None means the card, and raises
-        where there is none; pass ``"cpu"`` for the plain versions."""
+        where there is none; pass ``"cpu"`` for the plain versions.
+
+        ``dicts_override`` (``{column: sorted vocabulary}``, a stream's
+        vocabularies shared by all its chunks) encodes each string column
+        against its supplied vocabulary, and each int64 column it names
+        against its int64 one, whatever the chunk's own range; a wide
+        int64 column it does not name is refused, as the reference
+        refuses it.  On a card each column stages in page-locked host
+        memory and copies without waiting."""
         from ..api import resolve_device
 
         if pad_multiple is None:
@@ -275,33 +286,53 @@ class DeviceTable:
         n = host.num_rows
         padded = padded_length(n, pad_multiple)
         columns, dtypes, stats, dicts = {}, {}, {}, {}
+        override = dicts_override or {}
 
         str_cols = {
             c.name: c.data[:n] for c in host.columns if not c.dtype.is_numeric
         }
-        i64_cols = {}
+        i64_cols, i64_fixed = {}, {}
         for c in host.columns:
-            if c.dtype.is_numeric and c.data.dtype == np.int64 and n:
+            if not (c.dtype.is_numeric and c.data.dtype == np.int64):
+                continue
+            if c.name in override:
+                i64_fixed[c.name] = _encode_against(
+                    c.name, c.data[:n], override[c.name], "int64")
+            elif n:
                 lo, hi = int(c.data[:n].min()), int(c.data[:n].max())
                 if lo < -(2**31) or hi > 2**31 - 1:
                     i64_cols[c.name] = c.data[:n]
-        i64_encoded, i64_vocab = (
+        if i64_cols and dicts_override is not None:
+            raise ValidationError(
+                "int64 columns beyond the int32 range are not "
+                "supported with an external vocabulary (streaming "
+                f"chunks): {sorted(i64_cols)}; load in-memory or "
+                "pre-encode the keys"
+            )
+        i64_codes, i64_vocab = (
             encode_int64_columns(i64_cols) if i64_cols else ({}, None)
         )
-        encoded, vocab = (
-            encode_string_columns(str_cols) if str_cols else ({}, None)
-        )
+        i64_codes.update(i64_fixed)
+        if dicts_override is None:
+            encoded, vocab = (
+                encode_string_columns(str_cols) if str_cols else ({}, None)
+            )
+        else:
+            encoded = {name: _encode_against(name, vals, override[name],
+                                             "string")
+                       for name, vals in str_cols.items()}
 
         for c in host.columns:
             dtypes[c.name] = c.dtype
             stats[c.name] = c.stats
             if not c.dtype.is_numeric:
                 data = encoded[c.name]
-                dicts[c.name] = vocab
+                dicts[c.name] = (vocab if dicts_override is None
+                                 else override[c.name])
                 stats[c.name] = _code_stats(data, n)
-            elif c.name in i64_encoded:
-                data = i64_encoded[c.name]
-                dicts[c.name] = i64_vocab
+            elif c.name in i64_codes:
+                data = i64_codes[c.name]
+                dicts[c.name] = override.get(c.name, i64_vocab)
                 stats[c.name] = _code_stats(data, n)
             else:
                 data = c.data
@@ -309,9 +340,7 @@ class DeviceTable:
                     data = _f64_to_f32(c.name, data[:n])
                 elif data.dtype == np.int64:
                     data = data.astype(np.int32)
-            buf = np.zeros(padded, dtype=data.dtype)
-            buf[:n] = data[:n]
-            columns[c.name] = torch.from_numpy(buf).to(device)
+            columns[c.name] = _upload(data, n, padded, device)
         return cls(columns, dtypes, n, padded, stats,
                    host if keep_host else None, dicts, device)
 
@@ -321,6 +350,40 @@ class DeviceTable:
             f"DeviceTable({self.num_rows} rows, padded {self.padded_rows}, "
             f"{self.device}; {cols})"
         )
+
+
+def _upload(data: np.ndarray, n: int, padded: int, device) -> torch.Tensor:
+    """``data[:n]`` zero-padded to ``padded`` on ``device``.  On a card it
+    stages in page-locked memory and copies without waiting (no slower
+    than a pageable copy at any size, faster for large columns: PERF.md
+    §6, PR 8); the caching host allocator keeps the stage until the copy
+    is done."""
+    if device.type == "cuda":
+        stage = torch.empty(padded, dtype=torch.from_numpy(data[:0]).dtype,
+                            pin_memory=True)
+        view = stage.numpy()
+        view[:n] = data[:n]
+        view[n:] = 0
+        return stage.to(device, non_blocking=True)
+    buf = np.zeros(padded, dtype=data.dtype)
+    buf[:n] = data[:n]
+    return torch.from_numpy(buf).to(device)
+
+
+def _encode_against(name: str, values: np.ndarray, vocab: np.ndarray,
+                    kind: str) -> np.ndarray:
+    """int32 codes of ``values`` under a supplied sorted vocabulary;
+    every value must be in it (reference storage/table.py:316-331)."""
+    if kind == "string":
+        values = np.asarray([("" if x is None else str(x)) for x in values])
+    codes = np.searchsorted(vocab, values)
+    codes = np.clip(codes, 0, max(len(vocab) - 1, 0))
+    if len(vocab) and not np.all(vocab[codes] == values):
+        raise ValidationError(
+            f"{kind} column '{name}' contains values absent "
+            "from the supplied vocabulary"
+        )
+    return codes.astype(np.int32)
 
 
 def _code_stats(codes: np.ndarray, n: int) -> ColumnStats:
