@@ -1,6 +1,7 @@
 """Drive warpdb_tpu_torch once on a CUDA card, end to end.
 
-    python3 chip_smoke.py [--profile | --kernels | --stream]
+    python3 chip_smoke.py [--profile | --kernels | --stream | --mesh |
+                           --cards]
 
 Phases, each raising on failure:
 
@@ -24,7 +25,8 @@ Phases, each raising on failure:
    and K2 at other inputs (each k, ascending and duplicate values, skewed
    ids, nv = 4).
    ``--kernels`` stops here, after printing each kernel instance's ptxas
-   usage, and ``--stream`` runs phase 10 alone after the build;
+   usage, ``--stream`` runs phase 10 alone after the build, and
+   ``--mesh`` phase 11;
 4. slice: ``WarpDB(..., device="cuda")`` over bench.py's table (2^25
    rows, seed 12345) runs bench.py's query set and four more queries,
    each checked against NumPy on the same arrays; the K1 and K2 launch
@@ -79,7 +81,32 @@ Phases, each raising on failure:
    of bench.py's 2^25-row table, one chunk and the TPC-H tables go to the
    card through ``from_host``'s page-locked stage and through a pageable
    copy, each timed;
-11. with ``--profile`` only: one ``torch.profiler`` run per query (card
+11. mesh: bench.py's table re-laid by ``distribute`` over four shards of
+   the one card (``data_mesh(devices=["cuda:0"] * 4)``, 2^23 rows each)
+   with ``dimk`` registered: the sharded scan, GROUP BY quantity (the
+   all_gather merge), GROUP BY k (the row shuffle: each shard holds all
+   65536 keys, more than the combine's 16384; K2 once a shard in the
+   combine's local pass and once on the shuffled rows), ORDER BY …
+   LIMIT (K1 once a shard), the INNER and LEFT ``dimk`` joins with
+   GROUP BY (K3 in each), the dense partition window, a two-key GROUP BY (the combine
+   shuffle), APPROX_COUNT_DISTINCT (its registers by the gather route)
+   and a 2^19-row CSV streamed over the mesh; each against NumPy and the
+   single-device result (keys, counts and row order exactly, sums within
+   1e-6 of float64), with its collectives and bytes, launches, and the
+   median of 5 warm runs beside the single-device one (through the
+   engine, without the facade's Python list; the stream through the
+   facade).  K1 (the top-k), K2 (GROUP BY k) and K3 (both joins) are
+   held to their plain versions on the inputs the path gave the first
+   shard, recorded in one more run of each.  Then a
+   ``torch.distributed`` NCCL group of one rank on
+   cuda:0: ``make_global_table`` and two distributed GROUP BYs against
+   NumPy.
+   ``--cards`` (on a machine with several cards, not in the default run)
+   runs the same statements with one shard a card in this process, then
+   an NCCL group of one process a card (``--rank``, this script once a
+   rank), each rank holding its slice and checking every statement and
+   its kernels on its own shard's inputs;
+12. with ``--profile`` only: one ``torch.profiler`` run per query (card
    busy time, idle share, largest device items; of the stream,
    ``s_group_k`` and ``s_join_dimk``) and each kernel's registers and
    spills from ``ptxas -v``.
@@ -1998,6 +2025,527 @@ def phase_uploads(tables: dict, name: str) -> None:
             + f" [{name}]")
 
 
+# The mesh phase: bench.py's table re-laid over MESH_SHARDS shards of the
+# one card (``distribute(data_mesh(devices=["cuda:0"] * 4))``); each
+# statement against NumPy and the single-device result.  (name, kind,
+# statement); kind "expr" runs ``query_sharded``, "stream" streams a
+# MESH_STREAM_ROWS-row CSV over the mesh.
+MESH_SHARDS = 4
+MESH_STREAM_ROWS = 1 << 19
+MESH_QUERIES = [
+    ("m_scan", "expr", "price * quantity WHERE price > 15"),
+    ("m_group_q", "sql", "SELECT quantity, COUNT(*), SUM(price) FROM t "
+     "GROUP BY quantity ORDER BY quantity ASC"),
+    ("m_group_k", "sql", "SELECT k, COUNT(*), SUM(price) FROM t GROUP BY k "
+     "ORDER BY k ASC"),
+    ("m_topk", "sql", "SELECT price FROM t ORDER BY price DESC LIMIT 5"),
+    ("m_join_inner", "sql", "SELECT quantity, SUM(price * dimk.w) FROM t "
+     "JOIN dimk ON k = dimk.k GROUP BY quantity ORDER BY quantity ASC"),
+    ("m_join_left", "sql", "SELECT quantity, COUNT(dimk.w), SUM(price) FROM t "
+     "LEFT JOIN dimk ON k = dimk.k GROUP BY quantity ORDER BY quantity ASC"),
+    ("m_window", "sql", "SELECT SUM(price) OVER (PARTITION BY quantity) "
+     "FROM t WHERE price > 15"),
+    ("m_group_2key", "sql", "SELECT quantity, k, COUNT(*), SUM(price) FROM t "
+     "WHERE k < 16 GROUP BY quantity, k ORDER BY quantity ASC, k ASC"),
+    ("m_hll", "sql", "SELECT quantity, APPROX_COUNT_DISTINCT(k) FROM t "
+     "GROUP BY quantity ORDER BY quantity ASC"),
+    ("m_stream", "stream", "SELECT quantity, COUNT(*), SUM(price) FROM t "
+     "GROUP BY quantity"),
+]
+# Result columns that are float sums, by statement.
+MESH_SUMS = {"m_group_q": {2}, "m_group_k": {2}, "m_join_inner": {1},
+             "m_join_left": {2}, "m_window": {0}, "m_group_2key": {3},
+             "m_stream": {2}}
+# Sums on the mesh merge in float64 (a shard's partials add in float64,
+# or in K2, which adds its f32 blocks in float64):
+# held to the float64 NumPy sum within this, and to the single-device
+# result within this plus the single-device result's own distance from
+# float64.
+MESH_RTOL = 1e-6
+
+
+def expected_mesh(d: dict, dimk: dict, stream: dict) -> dict:
+    """NumPy answers of MESH_QUERIES (m_hll: the exact distinct counts
+    and the HyperLogLog model's registers)."""
+    p, q, k = d["price"], d["quantity"], d["k"]
+    f = np.float32
+    qi, ki = q.astype(np.int64), k.astype(np.int64)
+    p64 = p.astype(np.float64)
+    dk = dimk["k"].astype(np.int64)
+    cnt = np.bincount(dk, minlength=KEY_SLOTS)
+    wsum = np.bincount(dk, weights=dimk["w"].astype(np.float64),
+                       minlength=KEY_SLOTS)
+    keep = p > f(15)
+    occ_k = np.bincount(ki, minlength=KEY_SLOTS) > 0
+    small = ki < 16
+    pair = qi[small] * 16 + ki[small]
+    pocc = np.bincount(pair, minlength=GROUP_SLOTS * 16)
+    pid = np.flatnonzero(pocc)
+    pg, skey = np_distinct_pairs(q, k, value_slots=KEY_SLOTS)
+    sq = stream["quantity"]
+    return {
+        "m_scan": [np.where(keep, p * q, f(0))],
+        "m_group_q": [np.arange(GROUP_SLOTS), np.bincount(qi),
+                      np.bincount(qi, weights=p64)],
+        "m_group_k": [np.flatnonzero(occ_k),
+                      np.bincount(ki, minlength=KEY_SLOTS)[occ_k],
+                      np.bincount(ki, weights=p64,
+                                  minlength=KEY_SLOTS)[occ_k]],
+        "m_topk": [np.sort(p)[::-1][:5]],
+        "m_join_inner": [np.arange(GROUP_SLOTS),
+                         np.bincount(qi, weights=p64 * wsum[ki])],
+        "m_join_left": [np.arange(GROUP_SLOTS),
+                        np.bincount(qi, weights=cnt[ki]),
+                        np.bincount(qi, weights=p64 * np.maximum(cnt[ki],
+                                                                 1))],
+        "m_window": [np.bincount(qi[keep], weights=p64[keep],
+                                 minlength=GROUP_SLOTS)[qi[keep]]],
+        "m_group_2key": [pid // 16, pid % 16, pocc[pid],
+                         np.bincount(pair, weights=p64[small],
+                                     minlength=GROUP_SLOTS * 16)[pid]],
+        "m_hll": (np_distinct_counts(pg),
+                  np_hll_registers(pg, skey, GROUP_SLOTS)),
+        "m_stream": [np.arange(GROUP_SLOTS), np.bincount(sq),
+                     np.bincount(sq, weights=stream["price"].astype(
+                         np.float64))],
+    }
+
+
+def check_mesh(name: str, got: list, single: list, want) -> float:
+    """One mesh statement: every column equal to the single-device one
+    and NumPy's, sums within MESH_RTOL of float64 (and of the
+    single-device sum beyond its own distance from float64).  Returns
+    the largest relative distance of a sum from the single-device one."""
+    if name == "m_hll":
+        exact, regs = want
+        np.testing.assert_array_equal(got[0], np.arange(GROUP_SLOTS))
+        np.testing.assert_array_equal(got[1], single[1], err_msg=name)
+        _check_hll(name, got[1], regs, exact)
+        return 0.0
+    if len(got) != len(want) or len(single) != len(want):
+        raise AssertionError(f"{name}: {len(got)} columns")
+    worst = 0.0
+    for i, (g, s, w) in enumerate(zip(got, single, want)):
+        g, s, w = (np.asarray(x, np.float64) for x in (g, s, w))
+        if not g.shape == s.shape == w.shape:
+            raise AssertionError(f"{name}[{i}]: shapes {g.shape} {s.shape} "
+                                 f"{w.shape}")
+        if i in MESH_SUMS.get(name, ()):
+            np.testing.assert_allclose(g, w, rtol=MESH_RTOL,
+                                       err_msg=f"{name}[{i}]")
+            bound = MESH_RTOL * np.abs(w) + np.abs(s - w)
+            if not np.all(np.abs(g - s) <= bound):
+                raise AssertionError(f"{name}[{i}]: off the single-device "
+                                     "sum")
+            worst = max(worst, float(np.max(np.abs(g - s)
+                                            / np.maximum(np.abs(s), 1e-30))))
+        else:
+            np.testing.assert_array_equal(g, s, err_msg=f"{name}[{i}]")
+            np.testing.assert_array_equal(g, w, err_msg=f"{name}[{i}]")
+    return worst
+
+
+# The statements whose kernels check_mesh_kernels holds to their plain
+# versions on one shard's inputs, and the kernels each gives.
+MESH_KERNEL_CHECKS = {"m_topk": ("topk",), "m_group_k": ("group_hist",),
+                      "m_join_inner": ("windowed_expand",),
+                      "m_join_left": ("windowed_expand",)}
+
+
+@contextlib.contextmanager
+def first_kernel_inputs():
+    """Record the arguments of the first call of K1, K2 and K3 made by
+    the modules of the mesh path (``ops.sort``, ``ops.aggregate``,
+    ``parallel.dist_join``), keyed as the kernels dict; every call goes
+    on to the wrapper, which keeps its own count."""
+    from warpdb_tpu_torch.ops import aggregate
+    from warpdb_tpu_torch.ops import sort as sort_mod
+    from warpdb_tpu_torch.parallel import dist_join
+
+    first: dict = {}
+    sites = [(sort_mod, "topk_candidates", "topk"),
+             (aggregate, "group_counts_sums", "group_hist"),
+             (dist_join, "windowed_expand", "windowed_expand")]
+    saved = []
+    for mod, attr, key in sites:
+        fn = getattr(mod, attr)
+
+        def record(*a, _fn=fn, _key=key, **kw):
+            first.setdefault(_key, a)
+            return _fn(*a, **kw)
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, record)
+    try:
+        yield first
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def check_mesh_kernels(name: str, first: dict, err: dict, where: str) -> None:
+    """The kernels of mesh statement ``name`` against their plain
+    versions on the inputs the path gave the first shard
+    (``first_kernel_inputs``): K1 at the shard's k (candidates equal bit
+    for bit), K2 at the shard's slot ids and values (counts exact, sums
+    within SUM_RTOL of plain and float64), K3 at the shard's offsets and
+    gather columns after the exchange (dup and columns bit for bit).
+    Adds each largest error to ``err``.  These launches count for no
+    path."""
+    from warpdb_tpu_torch.ops import expand
+    from warpdb_tpu_torch.ops import group_kernel as group
+    from warpdb_tpu_torch.ops import topk_kernel as topk
+
+    for kname in MESH_KERNEL_CHECKS[name]:
+        if kname not in first:
+            raise AssertionError(f"{name}: {kname} did not run on {where}")
+        a = first[kname]
+        if kname == "topk":
+            u, k = a[0], a[1]
+            _check_topk(topk, u, k, f"{where} {name} n={u.shape[0]}", err)
+            log(f"K1 {where} {name} n={u.shape[0]} k={k} on {u.device}: "
+                "candidates equal to plain bit for bit")
+        elif kname == "group_hist":
+            gd, vd, slots = a[0], list(a[1]), a[2]
+            _check_group(group, gd.cpu().numpy(), gd,
+                         [v.cpu().numpy() for v in vd], vd, slots,
+                         f"{where} {name}", err, {})
+            log(f"K2 {where} {name} n={gd.shape[0]} slots={slots} "
+                f"nv={len(vd)} on {gd.device}: counts exact, sums within "
+                f"rtol {SUM_RTOL} of plain and float64")
+        else:
+            off, cols, total = a[0], tuple(a[1]), a[2]
+            _o, dup, taken = expand.windowed_expand(off, cols, total)
+            _po, pdup, ptaken = expand.windowed_expand_plain(off, cols,
+                                                             total, False)
+            torch.cuda.synchronize(off.device)
+            err[kname] = max(err[kname], _bit_err(
+                taken + (dup,), ptaken + (pdup,), f"K3 {where} {name}"))
+            log(f"K3 {where} {name} n={off.shape[0]} total={total} "
+                f"C={len(cols)} on {off.device}: dup and columns equal to "
+                "plain bit for bit")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_nccl(HostTable, data: dict, name: str) -> None:
+    """The multi-process path as a world-size-1 NCCL group on cuda:0:
+    ``initialize``, ``make_global_table`` and a distributed GROUP BY (the
+    all_gather merge) and a row-shuffle GROUP BY through SQL, each
+    against NumPy."""
+    import torch.distributed as dist
+
+    from warpdb_tpu_torch import WarpDB
+    from warpdb_tpu_torch.frontend import parse_expression_text
+    from warpdb_tpu_torch.parallel import multihost
+    from warpdb_tpu_torch.parallel.sharded import run_grouped_sharded
+    from warpdb_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda:0")
+    try:
+        mesh = multihost.global_mesh()
+        start, end = multihost.host_shard_range(ROWS)
+        table = multihost.make_global_table(HostTable.from_dict(
+            {c: v[start:end] for c, v in data.items()}), ROWS, mesh)
+        set_up = time.perf_counter() - t0
+        p, q, k = data["price"], data["quantity"], data["k"]
+        keep = p > np.float32(50)
+        qi, ki = q.astype(np.int64)[keep], k.astype(np.int64)
+        with metrics.timed_query("nccl group", "sql", ROWS, 0, "cuda:0"):
+            gp = run_grouped_sharded([parse_expression_text("quantity")],
+                                     [parse_expression_text("price")],
+                                     parse_expression_text("price > 50"),
+                                     table)
+        cs = metrics.last().collectives
+        np.testing.assert_array_equal(gp.counts.cpu().numpy(),
+                                      np.bincount(qi))
+        np.testing.assert_allclose(
+            gp.sums[0].cpu().numpy(),
+            np.bincount(qi, weights=p[keep].astype(np.float64)),
+            rtol=MESH_RTOL)
+        db = WarpDB.from_device_table(table, mesh=mesh, name="t")
+        sql = "SELECT k, COUNT(*) FROM t GROUP BY k"
+        t1 = time.perf_counter()
+        got = db.query_sql_table(sql)
+        wall = time.perf_counter() - t1
+        ops = [o for o, _h in metrics.last().operators]
+        cs2 = metrics.last().collectives
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            db.query_sql_table(sql)
+            walls.append(time.perf_counter() - t1)
+        occ = np.bincount(ki, minlength=KEY_SLOTS)
+        np.testing.assert_array_equal(got["k"], np.flatnonzero(occ))
+        np.testing.assert_array_equal(list(got.values())[1], occ[occ > 0])
+        log(f"nccl: a torch.distributed NCCL group of ONE rank on cuda:0 "
+            f"(backend {dist.get_backend()}, world {dist.get_world_size()}): "
+            f"make_global_table {set_up!r} s; GROUP BY quantity (all_gather "
+            f"merge) agrees with numpy, collectives {cs}; GROUP BY k "
+            f"({'/'.join(ops)}) agrees with numpy in {wall * 1e3!r} ms "
+            f"(the first run; median of 3 more {sorted(walls)[1] * 1e3!r} "
+            f"ms), collectives {cs2} (one rank; --cards runs one a card) "
+            f"[{name}]")
+    finally:
+        dist.destroy_process_group()
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_mesh(WarpDB, HostTable, kernels: dict, name: str, tmp, err: dict,
+               data=None, single=None, dimk=None, devices=None) -> dict:
+    """MESH_QUERIES over bench.py's table re-laid on ``devices`` (default
+    MESH_SHARDS shards of cuda:0; the single-device facade ``single`` on
+    cuda:0 alongside), each against NumPy and the single-device result,
+    with its launches (K1 once a shard a top-k, K2 in GROUP BY k, K3 in
+    each join), collectives and bytes, and the median wall of 5 warm
+    runs beside the single-device one; then one more run of the
+    statements in MESH_KERNEL_CHECKS, whose kernels are held to their
+    plain versions on the first shard's inputs (errors into ``err``).
+    Returns the launches of the mesh path."""
+    from warpdb_tpu_torch.config import get_config
+    from warpdb_tpu_torch.engine.executor import run_expression, \
+        run_query_table
+    from warpdb_tpu_torch.parallel import (
+        ShardedTable,
+        data_mesh,
+        run_expression_sharded,
+    )
+    from warpdb_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    if data is None:
+        data = make_table()
+    if single is None:
+        single = WarpDB(HostTable.from_dict(data), device="cuda")
+    if dimk is None:
+        dimk = make_join_tables()["dimk"]
+    devices = devices or ["cuda:0"] * MESH_SHARDS
+    mesh = data_mesh(devices=devices)
+    mdb = WarpDB(HostTable.from_dict(data), device="cuda").distribute(mesh)
+    for db in (mdb, single):
+        db.register_table("dimk", HostTable.from_dict(dimk))
+    if not isinstance(mdb.table, ShardedTable) or any(
+            s.device.type != "cuda" for s in mdb.table.shards):
+        raise AssertionError("the mesh table is not sharded on the card")
+    g = np.random.default_rng(SEED + 3)
+    stream = {"cents": g.integers(0, 10_000, MESH_STREAM_ROWS),
+              "quantity": g.integers(0, GROUP_SLOTS, MESH_STREAM_ROWS)}
+    stream["price"] = (stream["cents"] / 100).astype(np.float32)
+    path = pathlib.Path(tmp) / "mesh_stream.csv"
+    write_digit_csv(path, "price,quantity",
+                    [lambda s: _cents(stream["cents"][s]),
+                     lambda s: [_num(stream["quantity"][s], 2)]],
+                    MESH_STREAM_ROWS)
+    want = expected_mesh(data, dimk, stream)
+    cfg = get_config()
+    cfg.join_cache_entries = 0
+    log(f"mesh: {ROWS} rows on {mesh.size} shards ({', '.join(devices)}; "
+        f"rows {mdb.table.shard_rows}), set-up and NumPy "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def run(db, kind: str, q: str, engine: bool = False):
+        """The statement through the facade, or with ``engine`` through
+        the engine alone (the timed runs: the facade's Python list of a
+        2^25-row result costs the same seconds on both sides)."""
+        for t in (db.table, *db._catalog.values()):
+            for memo in JOIN_MEMOS:
+                getattr(t, memo, {}).clear()
+        if engine and kind == "expr":
+            ast = db._parse_expr_query(q)
+            if db is mdb:
+                return [run_expression_sharded(db.table, *ast)]
+            return [run_expression(db.table, *ast)]
+        if engine and kind == "sql":
+            ast, catalog = db._prepare_sql(q)
+            return list(run_query_table(ast, db._base_table(ast, catalog),
+                                        catalog).values())
+        if kind == "expr":
+            return [np.asarray(db.query_sharded(q) if db is mdb
+                               else db.query(q))]
+        if kind == "stream":
+            m = mesh if db is mdb else None
+            with metrics.timed_query(q, "sql", MESH_STREAM_ROWS, 0, "cuda:0"):
+                out = WarpDB.query_streaming_sql(
+                    str(path), q, rows_per_chunk=MESH_STREAM_ROWS // 4,
+                    mesh=m, device="cuda")
+            return list(out.values())
+        return list(db.query_sql_table(q).values())
+
+    total = {k: 0 for k in kernels}
+    for n, kind, q in MESH_QUERIES:
+        for fn in kernels.values():
+            fn.launches = 0
+        got = run(mdb, kind, q)
+        sync_all()
+        launch = {k: fn.launches for k, fn in kernels.items()}
+        m = metrics.last()
+        ops = [o for o, _h in m.operators]
+        cs = {}
+        for op, nbytes in m.collectives:
+            cs[op] = cs.get(op, 0) + nbytes
+        for k, c in launch.items():
+            total[k] += c
+        if n == "m_topk" and launch["topk"] != mesh.size:
+            raise AssertionError(f"m_topk: K1 launched {launch['topk']} "
+                                 f"times, not once a shard")
+        if n.startswith("m_join") and launch["windowed_expand"] < 1:
+            raise AssertionError(f"{n}: K3 did not launch")
+        if n == "m_group_k" and launch["group_hist"] < mesh.size:
+            raise AssertionError(f"m_group_k: K2 launched "
+                                 f"{launch['group_hist']} times, not at "
+                                 "least once a shard")
+        if n in MESH_KERNEL_CHECKS:
+            with first_kernel_inputs() as first:
+                run(mdb, kind, q)
+            check_mesh_kernels(n, first, err, "mesh shard 0")
+            del first
+        sgot = run(single, kind, q)
+        worst = check_mesh(n, got, sgot, want[n])
+        ts = {}
+        for which, db in (("mesh", mdb), ("single", single)):
+            walls = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                run(db, kind, q, engine=True)
+                sync_all()
+                walls.append(time.perf_counter() - t1)
+            ts[which] = sorted(walls)[2] * 1e3
+        launched = {k: c for k, c in launch.items() if c}
+        log(f"mesh {n}: agrees with numpy and the single-device result "
+            f"(sums within {MESH_RTOL} of float64; largest sum distance from "
+            f"single-device {worst!r}); median of 5 warm runs "
+            f"{ts['mesh']!r} ms, single-device {ts['single']!r} ms "
+            f"({'the facade' if kind == 'stream' else 'the engine'}); "
+            "collectives "
+            f"{ {op: f'{b} B' for op, b in cs.items()} }; launches {launched}; "
+            f"route {'/'.join(dict.fromkeys(ops))} [{name}] — {q}")
+    return total
+
+
+def rank_main(rank: int, world: int, port: int) -> int:
+    """One rank of ``--cards``: joins the NCCL group on cuda:<rank>,
+    ingests its ``host_shard_range`` slice of bench.py's table, and runs
+    MESH_QUERIES but the stream SPMD against NumPy (the query's launches
+    on this rank's shard: K1 once in the top-k, K3 once in each join)."""
+    import torch.distributed as dist
+
+    from warpdb_tpu_torch import WarpDB
+    from warpdb_tpu_torch.engine.executor import run_query_table
+    from warpdb_tpu_torch.ops import expand
+    from warpdb_tpu_torch.ops import topk_kernel as topk
+    from warpdb_tpu_torch.parallel import multihost, run_expression_sharded
+    from warpdb_tpu_torch.storage import HostTable
+    from warpdb_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", world, rank,
+                         device=f"cuda:{rank}")
+    try:
+        mesh = multihost.global_mesh()
+        data = make_table()
+        dimk = make_join_tables()["dimk"]
+        start, end = multihost.host_shard_range(ROWS)
+        table = multihost.make_global_table(HostTable.from_dict(
+            {c: v[start:end] for c, v in data.items()}), ROWS, mesh)
+        db = WarpDB.from_device_table(table, mesh=mesh, name="t")
+        db.register_table("dimk", HostTable.from_dict(dimk))
+        want = expected_mesh(data, dimk, {"quantity": np.zeros(1, np.int64),
+                                          "price": np.zeros(1, np.float32)})
+        err = {"topk": 0.0, "group_hist": 0.0, "windowed_expand": 0.0}
+        log(f"rank {rank}/{world}: rows [{start}, {end}) on cuda:{rank}, "
+            f"set-up {time.perf_counter() - t0:.3f} s")
+        for n, kind, q in MESH_QUERIES:
+            if kind == "stream":
+                continue
+            before = (topk.topk_candidates.launches,
+                      expand.windowed_expand.launches)
+            got = ([np.asarray(db.query_sharded(q))] if kind == "expr"
+                   else list(db.query_sql_table(q).values()))
+            torch.cuda.synchronize()
+            k1 = topk.topk_candidates.launches - before[0]
+            k3 = expand.windowed_expand.launches - before[1]
+            if n == "m_topk" and k1 != 1:
+                raise AssertionError(f"{n}: K1 launched {k1} times")
+            if n.startswith("m_join") and k3 != 1:
+                raise AssertionError(f"{n}: K3 launched {k3} times")
+            if n in MESH_KERNEL_CHECKS:
+                with first_kernel_inputs() as first:
+                    if kind == "expr":
+                        db.query_sharded(q)
+                    else:
+                        db.query_sql_table(q)
+                check_mesh_kernels(n, first, err, f"rank {rank}")
+                del first
+            cs = {}
+            for op, nbytes in metrics.last().collectives:
+                cs[op] = cs.get(op, 0) + nbytes
+            check_mesh(n, got, got, want[n])
+            walls = []
+            for _ in range(3):
+                dist.barrier()
+                t1 = time.perf_counter()
+                if kind == "expr":
+                    run_expression_sharded(db.table,
+                                           *db._parse_expr_query(q))
+                else:
+                    ast, catalog = db._prepare_sql(q)
+                    run_query_table(ast, db._base_table(ast, catalog),
+                                    catalog)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            log(f"rank {rank} {n}: agrees with numpy (sums within "
+                f"{MESH_RTOL} of float64); median of 3 runs through the "
+                f"engine {sorted(walls)[1] * 1e3!r} ms; collectives "
+                f"{ {op: f'{b} B' for op, b in cs.items()} }; K1 {k1}, "
+                f"K3 {k3}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_ranks(name: str, world: int) -> None:
+    """The multi-process path across ``world`` cards: ``world`` processes
+    of this script (``--rank``), one a card, joined in one NCCL group;
+    each must exit 0 within its time limit."""
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--rank",
+         str(r), str(world), str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"  {line} [{name}]" if line.startswith("rank ") else
+                f"  rank {r}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}")
+    log(f"ranks: an NCCL group of {world} ranks on {world} cards agrees "
+        f"with numpy on every statement, {time.perf_counter() - t0!r} s")
+
+
 def phase_profile(run, queries, name: str) -> None:
     """One profiled warm run per slice query (torch.profiler, CPU and
     CUDA activities): profiled wall, card-busy time (the union of the
@@ -2043,15 +2591,24 @@ def phase_ptxas(_build) -> None:
 
 
 def main(argv: list) -> int:
+    if argv[:1] == ["--rank"] and len(argv) == 4:
+        return rank_main(*map(int, argv[1:]))
     profile = "--profile" in argv
     kernels_only = "--kernels" in argv
     stream_only = "--stream" in argv
-    if set(argv) - {"--profile", "--kernels", "--stream"}:
+    mesh_only = "--mesh" in argv
+    cards = "--cards" in argv
+    if set(argv) - {"--profile", "--kernels", "--stream", "--mesh",
+                    "--cards"}:
         print("usage: python3 chip_smoke.py [--profile | --kernels | "
-              "--stream]", file=sys.stderr)
+              "--stream | --mesh | --cards]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    if cards and torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs several CUDA devices",
+              file=sys.stderr)
         return 2
     from warpdb_tpu_torch import WarpDB, _build
     from warpdb_tpu_torch.config import get_config
@@ -2074,6 +2631,28 @@ def main(argv: list) -> int:
                "windowed_expand": expand.windowed_expand,
                "uniform_expand": expand.uniform_expand,
                "sorted_take": expand.sorted_take}
+    if mesh_only or cards:
+        with tempfile.TemporaryDirectory(prefix="warpdb_mesh_") as tmp:
+            t0 = time.perf_counter()
+            n = torch.cuda.device_count()
+            merr = {k: 0.0 for k in kernels}
+            phase_mesh(WarpDB, HostTable, kernels, name, tmp, merr,
+                       devices=[f"cuda:{i}" for i in range(n)]
+                       if cards else None)
+            log("mesh kernels against their plain versions: max abs err "
+                + str({k: merr[k] for k in ("topk", "group_hist",
+                                            "windowed_expand")}))
+            if cards:
+                phase_ranks(name, n)
+            else:
+                phase_nccl(HostTable, make_table(), name)
+            log(f"mesh phase: {time.perf_counter() - t0!r} s")
+        print(name)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if stream_only:
         with tempfile.TemporaryDirectory(prefix="warpdb_stream_") as tmp, \
                 native_library(pathlib.Path(tmp)) as t_native:
@@ -2250,6 +2829,16 @@ def main(argv: list) -> int:
     phase_uploads({"bench 2^25 rows": db.table,
                    "stream chunk": DeviceTable.from_host(chunk, device="cpu"),
                    **{f"tpch {t}": tdb._catalog[t] for t in ttables}}, name)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="warpdb_mesh_") as tmp:
+        mesh_launches = phase_mesh(WarpDB, HostTable, kernels, name, tmp,
+                                   err, data=data, single=db,
+                                   dimk=jtabs["dimk"])
+        phase_nccl(HostTable, data, name)
+    for k, c in mesh_launches.items():
+        launches[k] += c
+    log(f"mesh phase: {time.perf_counter() - t0!r} s")
 
     if profile:
         phase_profile(run, queries + join_queries, name)

@@ -778,3 +778,54 @@ def test_stream_on_card_matches_cpu(cuda, tmp_path, sql):
     assert (WarpDB.query_streaming_csv(str(path), expr, 3000, device="cuda")
             == WarpDB.query_streaming_csv(str(path), expr, 3000,
                                           device="cpu"))
+
+
+# --- the mesh: four shards of the card against four CPU shards ------------
+
+
+@pytest.fixture(scope="module")
+def mesh_dbs(cuda):
+    from warpdb_tpu_torch.parallel import data_mesh
+
+    tables = _join_tables()
+    out = []
+    for dev in ("cuda:0", "cpu"):
+        db = WarpDB(tables["t"], mesh=data_mesh(devices=[dev] * 4))
+        for name in ("dim", "multi"):
+            db.register_table(name, tables[name])
+        out.append(db)
+    return out
+
+
+MESH_QUERIES = [
+    "SELECT g, COUNT(*), SUM(price) FROM t GROUP BY g ORDER BY g",
+    "SELECT k, SUM(price) FROM t GROUP BY k ORDER BY k",
+    "SELECT price FROM t ORDER BY price DESC LIMIT 7",
+    "SELECT g, SUM(price * multi.wm) FROM t JOIN multi ON k = multi.km "
+    "GROUP BY g ORDER BY g",
+    "SELECT COUNT(multi.wm) FROM t LEFT JOIN multi ON k = multi.km",
+    "SELECT SUM(price) OVER (PARTITION BY g) FROM t WHERE price > 50",
+    "SELECT RANK() OVER (PARTITION BY g ORDER BY price) FROM t",
+]
+
+
+@pytest.mark.parametrize("q", MESH_QUERIES)
+def test_mesh_on_card_matches_the_cpu_mesh(mesh_dbs, q):
+    """The distributed routes on four shards of the card (K1 once a
+    shard of a top-k, K3 once a shard of a join) against the same routes
+    on four CPU shards; the shards all live on the card."""
+    gpu, cpu = mesh_dbs
+    assert all(s.device.type == "cuda" for s in gpu.table.shards)
+    before = (topk_kernel.topk_candidates.launches,
+              expand.windowed_expand.launches)
+    got, want = gpu.query_sql_table(q), cpu.query_sql_table(q)
+    torch.cuda.synchronize()
+    if "LIMIT" in q:
+        assert topk_kernel.topk_candidates.launches == before[0] + 4
+    if "JOIN" in q:
+        assert expand.windowed_expand.launches == before[1] + 4
+    assert list(got) == list(want)
+    for c in got:
+        np.testing.assert_allclose(np.asarray(got[c], np.float64),
+                                   np.asarray(want[c], np.float64),
+                                   rtol=1e-6, equal_nan=True, err_msg=q)

@@ -115,6 +115,46 @@ def test_surfaces_run_with_jax_and_warpdb_tpu_blocked(blocked):
     assert proc.stdout.strip().endswith("ok")
 
 
+_MESH = """
+import sys
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+import warpdb_tpu_torch.parallel.comm
+import warpdb_tpu_torch.parallel.dist_join
+import warpdb_tpu_torch.parallel.mesh
+import warpdb_tpu_torch.parallel.multihost
+import warpdb_tpu_torch.parallel.sharded
+import warpdb_tpu_torch.parallel.shuffle
+import warpdb_tpu_torch.parallel.window
+from warpdb_tpu_torch import WarpDB
+from warpdb_tpu_torch.parallel import data_mesh
+from warpdb_tpu_torch.parallel.dryrun import dryrun_multichip
+mesh = data_mesh(devices=["cpu"] * 4)
+db = WarpDB("data/test.csv", mesh=mesh)
+assert db.query_sql("SELECT SUM(price) FROM test GROUP BY quantity") == [
+    15.25, 10.5, 20.0, 30.0]
+assert db.query_sharded("price * quantity") == [31.5, 80.0, 30.5, 150.0]
+assert dryrun_multichip(4, "cpu")["shards"] == 4
+for name in BLOCKED:
+    assert sys.modules[name] is None
+print("ok")
+"""
+
+
+def test_mesh_modules_run_with_jax_and_warpdb_tpu_blocked():
+    """Every multi-device module (mesh, comm, sharded, shuffle,
+    dist_join, window, multihost, dryrun), a mesh query and the dry run
+    in a fresh interpreter with JAX and ``warpdb_tpu`` blocked."""
+    blocked = ("jax", "warpdb_tpu")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"BLOCKED = {blocked!r}\n" + _MESH],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_port_runs_with_jax_blocked():
     _run_blocked("jax")
 

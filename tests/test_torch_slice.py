@@ -298,12 +298,22 @@ def test_join_against_registered_table_raises():
 
 
 def test_other_entry_points_raise():
+    """The entry points that raised before the multi-device slice now run:
+    ``query_sharded`` and the stream with a CPU mesh, each held against
+    the reference's run on its 8-device mesh (nothing raises)."""
+    from warpdb_tpu.parallel import data_mesh as ref_data_mesh
+    from warpdb_tpu_torch.parallel import data_mesh
+
+    mesh, ref_mesh = data_mesh(devices=["cpu"] * 8), ref_data_mesh()
     port = PortDB("data/test.csv", device="cpu")
-    with pytest.raises(UnsupportedError, match="mesh"):
-        port.query_sharded("price")
-    with pytest.raises(UnsupportedError, match="mesh"):
-        PortDB.query_streaming_sql("data/test.csv", "SELECT price FROM t",
-                                   mesh=object(), device="cpu")
+    ref = RefDB("data/test.csv")
+    assert port.query_sharded("price", mesh=mesh) == ref.query_sharded(
+        "price", mesh=ref_mesh) == [10.5, 20.0, 15.25, 30.0]
+    sql = "SELECT price FROM t"
+    got = PortDB.query_streaming_sql("data/test.csv", sql, mesh=mesh,
+                                     rows_per_chunk=3)
+    assert got == RefDB.query_streaming_sql("data/test.csv", sql,
+                                            mesh=ref_mesh, rows_per_chunk=3)
 
 
 def test_kernels_reached_by_the_main_path(dbs):

@@ -701,17 +701,23 @@ def test_streaming_ordered_window_still_refuses(tmp_path):
 
 
 def test_streaming_with_a_mesh_raises():
-    for call in (
-        lambda: PortDB.query_streaming_sql("data/test.csv",
-                                           "SELECT price FROM t",
-                                           mesh=object(), device="cpu"),
-        lambda: PortDB.query_streaming_csv("data/test.csv", "price",
-                                           mesh=object(), device="cpu"),
-        lambda: PortDB.query_multi_gpu_csv("data/test.csv", "price",
-                                           mesh=object(), device="cpu"),
+    """A mesh no longer raises: each chunk shards over a 4-shard CPU mesh,
+    and the three entry points equal the reference's on its 8-device
+    mesh."""
+    from warpdb_tpu_torch.parallel import data_mesh as port_mesh
+
+    mesh, ref_mesh = port_mesh(devices=["cpu"] * 4), data_mesh()
+    sql = "SELECT quantity, SUM(price) AS s FROM t GROUP BY quantity"
+    for port_call, ref_call, args in (
+        (PortDB.query_streaming_sql, RefDB.query_streaming_sql,
+         ("data/test.csv", sql)),
+        (PortDB.query_streaming_csv, RefDB.query_streaming_csv,
+         ("data/test.csv", "price * quantity WHERE price > 15")),
+        (PortDB.query_multi_gpu_csv, RefDB.query_multi_gpu_csv,
+         ("data/test.csv", "price")),
     ):
-        with pytest.raises(errors.UnsupportedError, match="mesh"):
-            call()
+        got = port_call(*args, rows_per_chunk=3, mesh=mesh)
+        assert got == ref_call(*args, rows_per_chunk=3, mesh=ref_mesh)
 
 
 def test_streaming_without_cuda_raises(monkeypatch):

@@ -363,11 +363,25 @@ def test_dbapi_error_mapping(conn):
 
 
 def test_dbapi_transactions_and_mesh(conn):
+    """Commit succeeds, rollback is refused, and ``connect(mesh=…)`` runs
+    sharded over a CPU mesh with the reference's rows (its connection on
+    its 8-device mesh)."""
+    from warpdb_tpu.parallel import data_mesh as ref_data_mesh
+    from warpdb_tpu_torch.parallel import ShardedTable, data_mesh
+
     conn.commit()
     with pytest.raises(dbapi.NotSupportedError):
         conn.rollback()
-    with pytest.raises(dbapi.NotSupportedError, match="mesh"):
-        dbapi.connect("data/test.csv", device="cpu", mesh=object())
+    sql = ("SELECT quantity, SUM(price) FROM test GROUP BY quantity "
+           "ORDER BY quantity")
+    with dbapi.connect("data/test.csv",
+                       mesh=data_mesh(devices=["cpu"] * 4)) as c:
+        assert isinstance(c._db.table, ShardedTable)
+        got = c.cursor().execute(sql).fetchall()
+    with ref_dbapi.connect("data/test.csv", mesh=ref_data_mesh()) as rc:
+        want = rc.cursor().execute(sql).fetchall()
+    assert got == want == [(2.0, 15.25), (3.0, 10.5), (4.0, 20.0),
+                           (5.0, 30.0)]
 
 
 def test_dbapi_register_table_join_and_ddl():
@@ -597,8 +611,7 @@ def test_cli_demo_and_profile(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "Filtered rows (price > 25.0): 1" in out
     assert "Revenue[3] = 150.0  Adjusted[3] = 135.0" in out
-    assert "Sharded run: Multi-device execution (mesh) is not supported by "\
-        "warpdb_tpu_torch yet" in out
+    assert "Sharded result rows: 4" in out
     assert "Streamed result rows: 4" in out
     assert "Result[3] = 30.0" in out
     assert (tmp_path / "trace.json").exists()
@@ -616,8 +629,14 @@ def test_cli_serve_takes_the_positional_as_the_data_file(monkeypatch):
     assert served == [("extended", 8123)]
 
 
-def test_cli_sharded_raises():
+def test_cli_sharded_raises(capsys):
+    """``--sharded`` no longer raises: it prints its rows, as the
+    reference's CLI does (over every device of the facade's type: one CPU
+    shard here)."""
+    from warpdb_tpu.__main__ import main as ref_main
     from warpdb_tpu_torch.__main__ import main
 
-    with pytest.raises(errors.UnsupportedError, match="not supported"):
-        main(["price", "data/test.csv", "--device", "cpu", "--sharded"])
+    argv = ["price * quantity", "data/test.csv", "--sharded"]
+    got = _cli_lines(main, argv + ["--device", "cpu"], capsys)
+    assert got == _cli_lines(ref_main, argv, capsys)
+    assert "Result[3] = 150.0" in got

@@ -14,6 +14,11 @@ Each query records its metrics (``utils/metrics.py``).  The device is
 explicit: ``device=None`` means ``"cuda"``, and a missing CUDA device is
 an error, never a silent run on the CPU.  ``device="cpu"`` runs the
 kernels' plain PyTorch versions.
+
+With a ``mesh`` (``parallel.mesh.DataMesh``: ``WarpDB(src, mesh=…)``,
+``distribute``, ``from_device_table``) every relation of the facade is
+row-sharded over it and queries run distributed (``parallel/``);
+``query_sharded`` evaluates an expression over a mesh.
 """
 
 from __future__ import annotations
@@ -56,10 +61,6 @@ _DDL_DROP = re.compile(
     r"^\s*DROP\s+(TABLE|VIEW)\s+(IF\s+EXISTS\s+)?([A-Za-z_]\w*)\s*;?\s*$",
     re.IGNORECASE,
 )
-
-
-MESH_REFUSAL = ("Multi-device execution (mesh) is not supported by "
-                "warpdb_tpu_torch yet")
 
 
 def resolve_device(device) -> torch.device:
@@ -195,8 +196,12 @@ class WarpDB:
     """
 
     def __init__(self, filepath_or_table,
-                 schema: Optional[Sequence[DataType]] = None, device=None):
+                 schema: Optional[Sequence[DataType]] = None, device=None,
+                 mesh=None):
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self._device = resolve_device(device)
+        self._mesh = mesh
         if isinstance(filepath_or_table, HostTable):
             self._host = filepath_or_table
             self._name = "table"
@@ -209,8 +214,64 @@ class WarpDB:
             self._host = load_table(str(filepath_or_table), schema)
             base = str(filepath_or_table).rsplit("/", 1)[-1]
             self._name = base.rsplit(".", 1)[0] or "table"
-        self._table = DeviceTable.from_host(self._host, device=self._device)
+        self._table = self._upload(self._host)
         self._catalog = Catalog({self._name: self._table, "t": self._table})
+
+    def _upload(self, host: HostTable):
+        """``host`` on this facade's device, or sharded over its mesh."""
+        if self._mesh is not None:
+            from .parallel.sharded import shard_table
+
+            return shard_table(host, self._mesh)
+        return DeviceTable.from_host(host, device=self._device)
+
+    @classmethod
+    def from_device_table(cls, table, mesh=None,
+                          name: str = "table") -> "WarpDB":
+        """Wrap an assembled table (a DeviceTable, or a ShardedTable such
+        as ``parallel.multihost.make_global_table`` builds) under
+        ``name``; with ``mesh`` it is re-laid over it where it is not
+        sharded there already."""
+        if mesh is None:
+            mesh = getattr(table, "mesh", None)
+        elif getattr(table, "mesh", None) != mesh:
+            from .parallel.sharded import _ensure_sharded
+
+            table = _ensure_sharded(table, mesh)
+        db = cls.__new__(cls)
+        db._host = table.host
+        db._name = name
+        db._mesh = mesh
+        db._device = table.device
+        db._table = table
+        db._catalog = Catalog({name: table, "t": table})
+        return db
+
+    def distribute(self, mesh=None) -> "WarpDB":
+        """Re-lay the table row-sharded over ``mesh`` (None: every device
+        of the facade's type, all CUDA devices or one CPU shard), and the
+        registered tables with it; later queries run distributed."""
+        from .parallel.sharded import _ensure_sharded
+
+        self._mesh = mesh if mesh is not None else self._default_mesh()
+        old = self._table
+        self._table = (self._upload(self._host) if self._host is not None
+                       else _ensure_sharded(old, self._mesh))
+        for name, t in list(self._catalog.items()):
+            self._catalog[name] = (self._table if t is old
+                                   else _ensure_sharded(t, self._mesh))
+        return self
+
+    def _default_mesh(self):
+        from .parallel.mesh import DataMesh, data_mesh
+
+        if self._device.type == "cpu":
+            return DataMesh([self._device])
+        return data_mesh()
+
+    @property
+    def mesh(self):
+        return self._mesh
 
     # -- introspection -----------------------------------------------------
     @property
@@ -239,14 +300,17 @@ class WarpDB:
 
     def register_table(self, name: str, source, schema=None) -> None:
         """Register another table under ``name`` for FROM and JOIN."""
-        if isinstance(source, DeviceTable):
-            self._catalog[name] = source
-        else:
+        if isinstance(source, HostTable) or not hasattr(source, "dtypes"):
             host = source if isinstance(source, HostTable) else load_table(
                 str(source), schema
             )
-            self._catalog[name] = DeviceTable.from_host(host,
-                                                        device=self._device)
+            self._catalog[name] = self._upload(host)
+        elif self._mesh is not None:
+            from .parallel.sharded import _ensure_sharded
+
+            self._catalog[name] = _ensure_sharded(source, self._mesh)
+        else:
+            self._catalog[name] = source
         self._catalog.strict = True
 
     # -- expression path ---------------------------------------------------
@@ -279,8 +343,10 @@ class WarpDB:
             if ast is not None:
                 for ref in column_refs(ast):
                     names.update((ref.name, ref.unqualified))
+        parts = getattr(table, "shards", [table])
         return sum(t.element_size() * t.shape[0]
-                   for name, t in table.columns.items() if name in names)
+                   for p in parts
+                   for name, t in p.columns.items() if name in names)
 
     def query(self, expr: str) -> list:
         """Evaluate ``"<expr> [WHERE <cond>]"`` → length-N list of
@@ -651,10 +717,7 @@ class WarpDB:
                 dtypes[name] = DataType.STRING
             else:
                 arrays[name] = np.asarray(list(vals), np.float32)
-        return DeviceTable.from_host(
-            HostTable.from_dict(arrays, dtypes=dtypes or None),
-            device=self._device,
-        )
+        return self._upload(HostTable.from_dict(arrays, dtypes=dtypes or None))
 
     # -- EXPLAIN ------------------------------------------------------------
     def explain(self, query: str, analyze: bool = False) -> str:
@@ -778,9 +841,8 @@ class WarpDB:
                             device=None) -> list:
         """Stream a file in chunks of ``rows_per_chunk`` rows (default
         ``config.rows_per_chunk``), evaluating ``"<expr> [WHERE <cond>]"``
-        on each chunk on ``device`` (None: the card); one f32 value a
-        row, in row order.  ``mesh`` must be None (multi-device is not
-        ported yet)."""
+        on each chunk on ``device`` (None: the card), or sharded over
+        ``mesh``; one f32 value a row, in row order."""
         from .parallel.streaming import run_streaming_csv
 
         return run_streaming_csv(csv_path, expr, rows_per_chunk, mesh=mesh,
@@ -796,7 +858,8 @@ class WarpDB:
                             schema: Optional[Sequence[DataType]] = None,
                             device=None) -> dict:
         """Out-of-core SQL: per-chunk aggregation on ``device`` (None:
-        the card) merged on the host, and per-row statements, DISTINCT,
+        the card), or sharded over ``mesh``, merged on the host, and
+        per-row statements, DISTINCT,
         COUNT(DISTINCT), APPROX_COUNT_DISTINCT and partition-aggregate
         windows, over files larger than device memory.  ``dims`` maps
         table names to in-memory ``HostTable`` dimension tables that the
@@ -807,9 +870,29 @@ class WarpDB:
         return run_streaming_sql(csv_path, sql, rows_per_chunk, mesh=mesh,
                                  schema=schema, dims=dims, device=device)
 
-    # -- entry points outside the port so far ---------------------------------
-    def query_sharded(self, *args, **kwargs):
-        raise UnsupportedError(MESH_REFUSAL)
+    # -- multi-device ----------------------------------------------------------
+    def query_sharded(self, expr: str, mesh=None) -> list:
+        """Evaluate ``"<expr> [WHERE <cond>]"`` over ``mesh`` (None: the
+        facade's mesh, else every device of its type); the table is
+        re-laid there if it is not sharded over it.  A one-device mesh
+        runs the single-device path (reference ``query_multi_gpu``)."""
+        from .parallel.sharded import run_expression_sharded
+        from .utils.metrics import timed_query
+
+        expr_ast, cond_ast = self._parse_expr_query(expr)
+        if mesh is None:
+            mesh = self._mesh if self._mesh is not None \
+                else self._default_mesh()
+        with timed_query(expr, "expression", self._table.num_rows,
+                         self._bytes_scanned(expr_ast, cond_ast),
+                         mesh.root) as out_rows:
+            result = run_expression_sharded(self._table, expr_ast, cond_ast,
+                                            mesh=mesh)
+            out_rows[0] = len(result)
+        return result.tolist()
+
+    # The reference's name (warpdb.cpp:508-542).
+    query_multi_gpu = query_sharded
 
 
 def _capsule_address(capsule) -> int:

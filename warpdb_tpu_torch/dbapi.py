@@ -281,12 +281,7 @@ class Connection:
     def __init__(self, source, schema=None, device=None, mesh=None):
         from .api import WarpDB
 
-        if mesh is not None:
-            raise NotSupportedError(
-                "Multi-device execution (mesh) is not supported by "
-                "warpdb_tpu_torch yet"
-            )
-        self._db = WarpDB(source, schema, device=device)
+        self._db = WarpDB(source, schema, device=device, mesh=mesh)
 
     def register_table(self, name: str, source, schema=None) -> None:
         if self._db is None:
@@ -319,5 +314,6 @@ class Connection:
 
 
 def connect(source, schema=None, device=None, mesh=None) -> Connection:
-    """Open a PEP 249 connection over a table source on ``device``."""
+    """Open a PEP 249 connection over a table source on ``device``, or
+    sharded over ``mesh`` (a ``parallel.mesh.DataMesh``)."""
     return Connection(source, schema, device=device, mesh=mesh)

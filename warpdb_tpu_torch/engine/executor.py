@@ -84,6 +84,8 @@ from .compiler import (
     compile_filter_project,
     raw_int_item,
 )
+from ..parallel.routes import mesh_route
+from ..parallel.sharded import is_sharded, local_table
 from ..utils.metrics import note_operator
 from .group_exec import (
     _collect_agg_specs,
@@ -438,7 +440,12 @@ def run_expression_device(table, expr: Node,
                           cond: Optional[Node]) -> torch.Tensor:
     """:func:`run_expression` left on the table's device, unsynchronised
     (the stream copies it out itself).  A provably-false filter skips
-    the evaluation; a provably-true one is dropped."""
+    the evaluation; a provably-true one is dropped.  A sharded table
+    evaluates shard by shard (``parallel.sharded``)."""
+    if is_sharded(table):
+        from ..parallel.sharded import run_expression_sharded
+
+        return run_expression_sharded(table, expr, cond, device_out=True)
     expr = fold_constants(bind_strings(expr, table))
     if cond is not None:
         cond = fold_constants(bind_strings(cond, table))
@@ -679,8 +686,11 @@ def _join_rewrites(query: Query, table, catalog):
     aggregation.  Returns ``(query', probe', catalog')``."""
     query = jx._lift_implicit_join_conditions(query, table, catalog)
     query = jx._split_join_residuals(query)
-    query, catalog = jx._pushdown_build_filters(query, table, catalog)
-    query, table = jx._pushdown_join_where(query, table, catalog)
+    if not is_sharded(table):
+        # On a mesh the WHERE stays above the distributed join, as the
+        # reference's pushdowns decline there.
+        query, catalog = jx._pushdown_build_filters(query, table, catalog)
+        query, table = jx._pushdown_join_where(query, table, catalog)
     if query.group_by is not None and query.group_by.sets is None:
         rewritten = jx._try_eager_join_aggregate(query, table, catalog)
         if rewritten is not None:
@@ -897,6 +907,7 @@ def _run_projection_multi(query: Query, table, select_items: list) -> list:
     carried through one stable sort (ORDER BY) or the mask's order;
     row-aligned by construction (reference ``_run_projection_multi``)."""
     note_operator("project_multi", True)
+    table = local_table(table)
     raw_specs = [raw_int_item(s, table) for s in select_items]
     outs = [_row_values(s, table, r) for s, r in zip(select_items, raw_specs)]
     valid = _where_mask(query, table)
@@ -938,12 +949,41 @@ def _order_operand(term, table) -> torch.Tensor:
     return _row_values(term.expr, table, raw_int_item(term.expr, table))
 
 
+def _use_topk(query: Query, select, table, raw_spec) -> bool:
+    """ORDER BY the selected item … LIMIT takes the value-space top-k:
+    it cannot represent the NaN total order, so only where stats prove
+    the order key finite, and only for f32 values."""
+    order = query.order_by
+    terms = order.terms if order is not None else ()
+    limit_total = (query.limit or 0) + (query.offset or 0)
+    return (
+        len(terms) == 1
+        and terms[0].expr.canonical() == select.canonical()
+        and expr_range(terms[0].expr, table.stats) is not None
+        and query.limit is not None
+        and 0 < limit_total < table.padded_rows // 2
+        and raw_spec is None
+    )
+
+
 def _run_projection(query: Query, table) -> np.ndarray:
     """Non-grouped SELECT of one item: projection, WHERE, ORDER BY (top-k
-    or full sort), DISTINCT; one device→host transfer."""
+    or full sort), DISTINCT; one device→host transfer.  On a sharded
+    table the top-k and the dense partition window are distributed;
+    everything else takes the gather route."""
     select = query.select_list[0]
     if isinstance(select, WindowFunction):
         return _run_window(query, table)
+    if is_sharded(table):
+        limit_total = (query.limit or 0) + (query.offset or 0)
+        if mesh_route("project", table, query) == "topk":
+            from ..parallel.sharded import run_topk_sharded
+
+            out, total = run_topk_sharded(
+                select, query.where, table,
+                _next_pow2(max(limit_total, 16)), query.order_by.ascending)
+            return out[: min(limit_total, total)].astype(np.float32)
+        table = local_table(table)
     if isinstance(select, Aggregation):
         return _run_global_agg(query, table)
     if any(isinstance(n, Aggregation) for n in walk(select)):
@@ -956,19 +996,8 @@ def _run_projection(query: Query, table) -> np.ndarray:
     single_term = len(order_terms) == 1
     same_expr = single_term and order_terms[0].expr.canonical() == select.canonical()
     limit_total = (query.limit or 0) + (query.offset or 0)
-    # The value-space top-k cannot represent the NaN total order, so it
-    # only runs when stats prove the order key finite.
-    order_nan_free = bool(
-        single_term and expr_range(order_terms[0].expr, table.stats) is not None
-    )
     raw_spec = raw_int_item(select, table)
-    use_topk = (
-        same_expr
-        and order_nan_free
-        and query.limit is not None
-        and 0 < limit_total < table.padded_rows // 2
-        and raw_spec is None
-    )
+    use_topk = _use_topk(query, select, table, raw_spec)
     out_dtype = np.float32 if raw_spec is None else raw_spec[1]
     note_operator("project_topk" if use_topk else "project"
                   if order is None else "project_sort", True)

@@ -12,6 +12,7 @@ float key, the executor's memoised integral check touch the device.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 from ..config import get_config
@@ -25,6 +26,7 @@ from ..frontend.ast import (
     walk,
 )
 from ..ops.topk_kernel import MAX_K
+from ..parallel.routes import GATHER, mesh_key_space, mesh_route
 
 __all__ = ["explain_query", "explain_expression"]
 
@@ -52,8 +54,14 @@ def explain_expression(table, expr, cond) -> str:
         verdict = analyze_condition(fold_constants(cond), table.stats)
         tag = _verdict_tag(verdict, "always false -> scan skipped")
         lines.append(f"  filter:  {_fmt(cond)}  [{tag}]")
-    lines.append(f"  scan: {table.num_rows} rows (padded {table.padded_rows})"
-                 f", columns on {table.device}")
+    mesh = _mesh(table)
+    if mesh is not None:
+        lines.append(f"  scan: {table.num_rows} rows row-sharded over "
+                     f"{mesh.size} shards, each evaluated on its device and "
+                     "gathered in row order")
+    else:
+        lines.append(f"  scan: {table.num_rows} rows (padded "
+                     f"{table.padded_rows}), columns on {table.device}")
     return "\n".join(lines)
 
 
@@ -71,15 +79,39 @@ def _group_strategy(query: Query, select_items: list, table) -> tuple:
     return name, kp["num_slots"], use_k2
 
 
+def _mesh(table):
+    return getattr(table, "mesh", None)
+
+
+def _gather_tag(table) -> str:
+    """The gather route's tag: what an operator without a distributed
+    route does on a sharded table."""
+    mesh = _mesh(table)
+    return (f"gather route: the {mesh.size} shards all_gather onto "
+            f"{mesh.root} first")
+
+
 def _join_lines(query: Query, table, catalog: dict) -> list:
     from .join_exec import _classify_build_conjuncts
 
     lines = []
+    mesh = _mesh(table)
     for join in query.joins:
         right = catalog.get(join.table, table)
         how = ("phase 1: build-side torch.sort + probe searchsorted; unique "
                "build keys -> probe-order lookup, a uniform fan-out -> K4 "
                "uniform_expand, else K3 windowed_expand")
+        if mesh is not None:
+            route = mesh_route("join", table, join=(
+                getattr(join, "kind", "inner"), join.condition))
+            how = (f"DISTRIBUTED hash-partitioned all-to-all shuffle join "
+                   f"({mesh.size} shards; per shard: phase 1 + K3 "
+                   "windowed_expand)")
+            if route == "shuffle+gather":
+                how += ", then the build misses appended on the " \
+                    f"gathered result ({_gather_tag(table)})"
+            elif route == GATHER:
+                how = _gather_tag(table)
         kind = {"left": "left outer", "right": "right outer",
                 "full": "full outer", "cross": "cross"}.get(
             getattr(join, "kind", "inner"), "inner")
@@ -93,7 +125,8 @@ def _join_lines(query: Query, table, catalog: dict) -> list:
                 f"  join: {kind} equi-join with '{join.table}' on "
                 f"{_fmt(join.condition)} [{how}; build side {right.num_rows} "
                 "rows]")
-    if query.where is not None and get_config().join_filter_pushdown:
+    if (query.where is not None and get_config().join_filter_pushdown
+            and mesh is None):
         by_rel, _rest, _p, implied = _classify_build_conjuncts(
             query, table, catalog)
         for rname, conjs in by_rel.items():
@@ -111,13 +144,35 @@ def _join_lines(query: Query, table, catalog: dict) -> list:
 
 
 def _group_lines(query: Query, select_items: list, current) -> list:
+    from ..parallel.shuffle import COMBINE_CAP
     from .group_exec import _collect_agg_specs
 
     keys = ", ".join(_fmt(k) for k in query.group_by.keys)
     lines = [f"  group by: {keys}"]
+    mesh = _mesh(current)
     tier, slots, use_k2 = _group_strategy(query, select_items, current)
     packed = ", packed composite key" if len(query.group_by.keys) > 1 else ""
-    if tier == "DENSE":
+    route = mesh_route("group", current, query) if mesh is not None else None
+    if mesh is not None:
+        # A shard's partial table: the slot tier for one key
+        # (``sharded.slot_plan``), the sorted tier otherwise.
+        shard_tier = tier if len(query.group_by.keys) == 1 else "SORTED"
+        lines.append(
+            f"    per shard: {shard_tier} partial table"
+            + (f" ({_K2})" if shard_tier == "MIDRANGE" and use_k2 else ""))
+    if route == "merge":
+        space = mesh_key_space(current, query.group_by.keys)
+        lines.append(
+            f"    strategy: DISTRIBUTED per-shard partial aggregation + "
+            f"all_gather merge ({mesh.size} shards; {space} key tuples, "
+            "stats-bounded; partials merge in float64)")
+    elif mesh is not None:
+        lines.append(
+            f"    strategy: DISTRIBUTED map-side combine + all-to-all hash "
+            f"shuffle of partials ({mesh.size} shards; the row shuffle when "
+            f"a shard holds more than {COMBINE_CAP} key tuples), disjoint "
+            "tables gathered in key order")
+    elif tier == "DENSE":
         lines.append(
             f"    strategy: DENSE integer-key aggregation ({slots} slots, "
             f"stats-bounded{packed}; no sort — one slot table by bincount / "
@@ -155,8 +210,10 @@ def _group_lines(query: Query, select_items: list, current) -> list:
             "    per-group value statistics: one stable sort by (keys, value) "
             "each; APPROX_COUNT_DISTINCT -> HyperLogLog registers "
             "(scatter_reduce_ amax, exact COUNT(DISTINCT) above 2048 groups); "
-            "STRING_AGG joins on the host")
-    if tier != "DENSE" and not sorted_aggs and _device_finish(query):
+            "STRING_AGG joins on the host"
+            + (f" [{_gather_tag(current)}]" if mesh is not None else ""))
+    if (tier != "DENSE" and not sorted_aggs and _device_finish(query)
+            and mesh is None):
         lines.append(
             "    finish: HAVING + ORDER BY + LIMIT on the device when "
             "expressible over the partials — ships O(limit) groups, not "
@@ -183,9 +240,17 @@ def _device_finish(query: Query) -> bool:
     return any(isinstance(n, Aggregation) for n in walk(terms[0].expr))
 
 
-def _window_line(w: WindowFunction, current) -> str:
+def _window_line(w: WindowFunction, current, query: Query) -> str:
     from .window_exec import _window_dense_cfg
 
+    mesh = _mesh(current)
+    if mesh is not None:
+        if mesh_route("window", current, query) == "dense":
+            kind = (f"DISTRIBUTED dense partition slot tables merged by one "
+                    f"psum/pmin/pmax ({mesh.size} shards; no row moves)")
+        else:
+            kind = _gather_tag(current)
+        return f"  window: {_fmt(w)}  [{kind}]"
     if _window_dense_cfg(w, tuple(w.partition_by or ()), current) is not None:
         kind = "DENSE partition broadcast (stats-bounded key; no sort)"
     elif w.order_by:
@@ -195,33 +260,53 @@ def _window_line(w: WindowFunction, current) -> str:
     return f"  window: {_fmt(w)}  [{kind}]"
 
 
-def _order_line(query: Query, select_items: list, current) -> str:
+def _takes_topk(query: Query, select_items: list, current) -> bool:
+    """Whether the executor runs this projection as a top-k: the gate it
+    calls itself (``mesh_route`` on a mesh, ``_use_topk`` on one
+    device)."""
     from .compiler import raw_int_item
+    from .executor import _use_topk
+
+    if query.group_by is not None or not select_items:
+        return False
+    if _mesh(current) is not None:
+        q = copy.copy(query)
+        q.select_list = list(select_items)
+        return (len(select_items) == 1
+                and mesh_route("project", current, q) == "topk")
+    first = select_items[0]
+    return not query.distinct and _use_topk(query, first, current,
+                                            raw_int_item(first, current))
+
+
+def _order_line(query: Query, select_items: list, current) -> str:
     from .executor import _next_pow2
-    from .optimizer import expr_range
 
     terms = ", ".join(f"{_fmt(t.expr)} {'ASC' if t.ascending else 'DESC'}"
                       for t in query.order_by.terms)
     if query.group_by is not None:
         return f"  order by: {terms}  [host lexsort over groups]"
     limit_total = (query.limit or 0) + (query.offset or 0)
-    single = len(query.order_by.terms) == 1
-    first = select_items[0] if select_items else None
-    same = (single and first is not None
-            and query.order_by.expr.canonical() == first.canonical())
-    if (same and not query.distinct and query.limit is not None
-            and 0 < limit_total < current.padded_rows // 2
-            and expr_range(query.order_by.expr, current.stats) is not None
-            and raw_int_item(first, current) is None):
+    mesh = _mesh(current)
+    if _takes_topk(query, select_items, current):
         k = _next_pow2(max(limit_total, 16))
         how = _K1 if k <= MAX_K else "torch.topk"
+        if mesh is not None:
+            return (f"  order by: {terms}  [DISTRIBUTED: {how} per shard "
+                    f"({mesh.size} shards), k={k}; all_gather of k "
+                    "candidates a shard, one sort finishes]")
         return f"  order by: {terms}  [{how}, k={k}]"
-    return f"  order by: {terms}  [stable torch.sort, multi-key]"
+    tail = f"; {_gather_tag(current)}" if mesh is not None else ""
+    return f"  order by: {terms}  [stable torch.sort, multi-key{tail}]"
 
 
 def _distinct_line(query: Query, select_items: list, current) -> str:
     from .group_exec import slot_tier
 
+    if _mesh(current) is not None:
+        if len(select_items) > 1 or query.group_by is not None:
+            return "  distinct: as GROUP BY over the select list (distributed)"
+        return f"  distinct: sort-unique [{_gather_tag(current)}]"
     if (select_items and query.group_by is None
             and slot_tier(current, [select_items[0]], ()) is not None):
         return ("  distinct: DENSE/MIDRANGE slot occupancy (stats-bounded "
@@ -288,7 +373,7 @@ def explain_query(query: Query, table, catalog: Optional[dict] = None,
         items = [unalias(s) for s in bound.select_list]
         lines += _group_lines(bound, items, current)
     elif select_items and isinstance(select_items[0], WindowFunction):
-        lines.append(_window_line(select_items[0], current))
+        lines.append(_window_line(select_items[0], current, query))
     elif select_items and isinstance(select_items[0], Aggregation):
         agg = select_items[0]
         how = {
@@ -299,9 +384,18 @@ def explain_query(query: Query, table, catalog: Optional[dict] = None,
                 "one group over a constant key; values sorted, joined on "
                 "the host",
         }.get(agg.agg, "single masked torch reduction")
+        if _mesh(current) is not None:
+            how += f"; {_gather_tag(current)}"
         lines.append(f"  global aggregate: {_fmt(agg)}  [{how}]")
     else:
-        lines.append(f"  project: {', '.join(_fmt(s) for s in select_items)}")
+        line = f"  project: {', '.join(_fmt(s) for s in select_items)}"
+        if _mesh(current) is not None:
+            if _takes_topk(query, select_items, current):
+                line += (f"  [per shard on its device ({_mesh(current).size}"
+                         " shards)]")
+            else:
+                line += f"  [{_gather_tag(current)}]"
+        lines.append(line)
 
     if query.order_by is not None:
         lines.append(_order_line(query, select_items, current))
@@ -310,6 +404,12 @@ def explain_query(query: Query, table, catalog: Optional[dict] = None,
     if query.offset is not None or query.limit is not None:
         lines.append(f"  offset/limit: offset={query.offset or 0} "
                      f"limit={query.limit}  [host-side, after sort]")
-    lines.append(f"  scan: {current.num_rows} rows (padded "
-                 f"{current.padded_rows}) on {current.device}")
+    mesh = _mesh(current)
+    if mesh is not None:
+        lines.append(f"  scan: {current.num_rows} rows row-sharded over "
+                     f"{mesh.size} shards ({', '.join(map(str, current.shard_rows))}"
+                     f" rows) on {', '.join(str(d) for d in mesh.devices)}")
+    else:
+        lines.append(f"  scan: {current.num_rows} rows (padded "
+                     f"{current.padded_rows}) on {current.device}")
     return "\n".join(lines)

@@ -49,6 +49,8 @@ from ..ops.aggregate import (
 )
 from ..ops.hll import HLL_M, hll_estimate, hll_grouped_registers
 from ..ops.sort import U32_MAX, float_sort_key, int_sort_key, lexsort
+from ..parallel.routes import mesh_route
+from ..parallel.sharded import is_sharded, local_table
 from ..utils.metrics import note_operator
 from . import udf as udf_mod
 from .compiler import (
@@ -303,6 +305,8 @@ def _grouped_partials(query: Query, table, plan: dict,
     ORDER BY … LIMIT) and turns APPROX_COUNT_DISTINCT into its mergeable
     u8 registers."""
     group_keys = plan["group_keys"]
+    if is_sharded(table):
+        return _distributed_group(query, table, plan, final)
     # LIMIT pushdown of the reference (legal when groups emerge in the
     # default key order): the port slices on the host instead, with the
     # same rows; the condition still decides the device finish below.
@@ -357,6 +361,52 @@ def _grouped_partials(query: Query, table, plan: dict,
     return result
 
 
+def _distributed_group(query: Query, table, plan: dict,
+                       final: bool) -> "_HostGroupResult":
+    """Mesh GROUP BY (single or composite keys), the reference's route
+    choice (``mesh_route``): the all_gather merge when the stats-bounded
+    key space holds at most ``shuffle.SMALL_KEYS`` tuples, else the
+    map-side combine and all_to_all of partials, falling back to the row
+    shuffle when a shard holds more than its combine capacity of keys.
+    Each shard's partial table takes the single-device slot tier where
+    one applies (K2 on the card).  Per-group value
+    statistics (COUNT(DISTINCT), MEDIAN, HyperLogLog, STRING_AGG) take
+    the gather route: one sort per statistic on the root device, whose
+    segments line up with the merged table's ascending keys."""
+    from ..parallel.sharded import run_grouped_sharded
+    from ..parallel.shuffle import combine_shuffle_grouped, shuffle_grouped
+
+    group_keys = plan["group_keys"]
+    vexprs, need = plan["vexpr_nodes"], plan["need"]
+    if mesh_route("group", table, query) == "merge":
+        gp = run_grouped_sharded(group_keys, vexprs, query.where, table,
+                                 need=need)
+    else:
+        gp = combine_shuffle_grouped(group_keys, vexprs, query.where, table,
+                                     need=need)
+        if gp is None:
+            gp = shuffle_grouped(group_keys, vexprs, query.where, table,
+                                 need=need)
+    keys, counts, values = gp.to_host()
+    result = _HostGroupResult(keys, counts, values, gp.num_groups)
+    result.raw_int_key = len(keys) == 1 and keys[0].dtype.kind in "iu"
+    if plan["cd_specs"]:
+        local = local_table(table)
+        for spec in plan["cd_specs"]:
+            if spec.agg is AggregationType.STRING_AGG:
+                stat = _grouped_string_agg
+            elif spec.agg is AggregationType.APPROX_COUNT_DISTINCT:
+                stat = functools.partial(_grouped_hll,
+                                         want_registers=not final)
+            else:
+                stat = _grouped_value_order_stat
+            result.dcounts[spec.key] = stat(
+                query, local, group_keys, spec, result.num_groups,
+                raw_int_key=result.raw_int_key,
+            )
+    return result
+
+
 def _run_grouped_multi(query: Query, table, select_items: list) -> list:
     """Grouped pipeline for any number of select items (aggregates, keys,
     or arithmetic over them); one row-aligned array per item."""
@@ -397,10 +447,18 @@ def _integral_key_check(table, key_expr) -> tuple:
         memo = table._integral_memo = {}
     canon = key_expr.canonical()
     if canon not in memo:
-        cols = table.row_columns()
-        k = broadcast(_as_f32(build_evaluator(key_expr)(cols)), table.num_rows)
-        valid = torch.ones(table.num_rows, dtype=torch.bool, device=k.device)
-        memo[canon] = is_integral(k, valid)
+        parts = table.shards if is_sharded(table) else [table]
+        oks = []
+        for t in parts:
+            cols = t.row_columns()
+            k = broadcast(_as_f32(build_evaluator(key_expr)(cols)),
+                          t.num_rows)
+            valid = torch.ones(t.num_rows, dtype=torch.bool, device=k.device)
+            oks.append(int(is_integral(k, valid)))
+        if is_sharded(table):
+            # Every rank of a job plans alike.
+            oks = table.mesh.comm.gather_ints(oks)
+        memo[canon] = all(oks)
     return False, memo[canon]
 
 

@@ -52,6 +52,9 @@ from ..storage.table import ColumnStats, HostTable
 from ..config import get_config
 from ..ops.expand import sorted_take, uniform_expand, windowed_expand
 from ..ops.join import join_match_counts
+from ..parallel.mesh import mesh_width
+from ..parallel.routes import mesh_route
+from ..parallel.sharded import is_sharded, local_table
 from ..storage.table import DeviceTable
 from ..utils.metrics import note_operator
 from . import udf as udf_mod
@@ -302,10 +305,13 @@ def _materialize_join(left, right, right_name: str, cond: Optional[Node],
     misses; CROSS is an equi-join on a constant key."""
     pairs = [] if kind == "cross" else _equality_pairs(cond)
     cache_cap = get_config().join_cache_entries
+    mesh = (left.mesh if is_sharded(left)
+            else right.mesh if is_sharded(right) else None)
     mkey = (
         _table_uid(right), right_name,
         "<cross>" if cond is None else cond.canonical(), kind,
         None if needed is None else frozenset(needed),
+        None if mesh is None else mesh.size,
     )
     if cache_cap > 0:
         hit = memo_get(left, "_join_memo", mkey)
@@ -315,10 +321,23 @@ def _materialize_join(left, right, right_name: str, cond: Optional[Node],
     if kind in ("right", "full"):
         base = _materialize_join(left, right, right_name, cond, needed,
                                  "inner" if kind == "right" else "left")
-        out = _append_build_misses(base, left, right, right_name, pairs)
+        out = _append_build_misses(local_table(base), local_table(left),
+                                   local_table(right), right_name, pairs)
+    elif (mesh is not None
+          and mesh_route("join", left, join=(kind, cond)) == "shuffle"):
+        from ..parallel.dist_join import distributed_join_table
+
+        out = distributed_join_table(left, right, right_name, pairs, needed,
+                                     mesh, kind)
     else:
-        out = _materialize_join_local(left, right, right_name, pairs, needed,
-                                      kind)
+        # CROSS stays on one device: hashing a constant key would land
+        # every row on one shard anyway.
+        out = _materialize_join_local(local_table(left), local_table(right),
+                                      right_name, pairs, needed, kind)
+    if mesh is not None and not is_sharded(out):
+        from ..parallel.sharded import _ensure_sharded
+
+        out = _ensure_sharded(out, mesh)
     if cache_cap > 0:
         memo_put(left, "_join_memo", mkey, (out, right), cache_cap)
     return out
@@ -575,7 +594,8 @@ def _try_eager_join_aggregate(query, table, catalog):
     sel_names = tuple(
         s.name if isinstance(s, Alias) else None for s in query.select_list
     )
-    mkey = (query.canonical(), sel_names, _table_uid(right))
+    mkey = (query.canonical(), sel_names, _table_uid(right),
+            mesh_width(table))
     hit = memo_get(table, "_eja_memo", mkey)
     if hit is not None:
         q2, dim2, _right_ref = hit

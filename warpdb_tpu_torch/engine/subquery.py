@@ -55,6 +55,7 @@ from ..frontend.ast import (
     unalias,
     walk,
 )
+from ..parallel.mesh import mesh_width
 from ..storage.strings import decode_codes, literal_code
 from ..storage.table import DataType, DeviceTable, HostTable
 from . import udf as udf_mod
@@ -103,7 +104,8 @@ def query_dep_key(q: Query, base, catalog) -> tuple:
     """Memo-key tail of everything that can change a materialised
     result: the plan canonical, the base and every joined table
     instance (tables are immutable, so identity is content), each
-    set-op branch's relations, and the UDF registry version."""
+    set-op branch's relations, the UDF registry version, and the width
+    of the mesh the base is sharded over (None on one device)."""
     catalog = catalog or {}
 
     def join_uids(query):
@@ -118,7 +120,7 @@ def query_dep_key(q: Query, base, catalog) -> tuple:
         for _op, _all, b in q.set_ops
     )
     return (q.canonical(), _table_uid(base), join_uids(q), branch_uids,
-            udf_mod.registry_version())
+            udf_mod.registry_version(), mesh_width(base))
 
 
 def _memoised(owner, key, make, attr="_subq_memo", entries=_MEMO_ENTRIES):
@@ -141,10 +143,10 @@ def decode_table(query: Query, base, catalog):
 
 def materialize_query_table(sub: Query, base, catalog) -> DeviceTable:
     """Run ``sub`` against ``base`` and land the result as a fresh
-    DeviceTable on ``base``'s device (stats computed, so stats-gated
-    paths stay live downstream).  Every column ``decode_result_column``
-    decodes to strings re-encodes with a fresh vocabulary; the others
-    become f32."""
+    DeviceTable on ``base``'s device, or sharded over ``base``'s mesh
+    (stats computed, so stats-gated paths stay live downstream).  Every
+    column ``decode_result_column`` decodes to strings re-encodes with a
+    fresh vocabulary; the others become f32."""
     from ..api import decode_result_column
     from .executor import (
         _resolve_alias_catalog,
@@ -167,9 +169,13 @@ def materialize_query_table(sub: Query, base, catalog) -> DeviceTable:
             dtypes[name] = DataType.STRING
         else:
             arrays[name] = np.asarray(vals, np.float32)
-    return DeviceTable.from_host(
-        HostTable.from_dict(arrays, dtypes=dtypes or None), device=base.device
-    )
+    host = HostTable.from_dict(arrays, dtypes=dtypes or None)
+    mesh = getattr(base, "mesh", None)
+    if mesh is not None:
+        from ..parallel.sharded import shard_table
+
+        return shard_table(host, mesh)
+    return DeviceTable.from_host(host, device=base.device)
 
 
 def _resolve_from_subquery(query: Query, table, catalog):

@@ -44,6 +44,8 @@ from ..frontend.ast import (
     walk,
 )
 from ..ops.sort import sort_by_keys
+from ..parallel.routes import mesh_route
+from ..parallel.sharded import is_sharded, local_table
 from ..utils.metrics import note_operator
 from ..ops.window import (
     dense_window_aggregate,
@@ -244,8 +246,21 @@ def _run_window(query: Query, table) -> np.ndarray:
     """``SELECT AGG(e) OVER (…)``: the window values of the rows WHERE
     keeps, in row order, or sorted by the outer ORDER BY (f32 keys,
     stable, as the reference)."""
-    note_operator("window", True)
     select: WindowFunction = query.select_list[0]
+    if is_sharded(table):
+        if mesh_route("window", table, query) == "dense":
+            from ..parallel.window import run_window_partition_agg_sharded
+
+            part_exprs = tuple(select.partition_by or ())
+            dense_cfg = _window_dense_cfg(select, part_exprs, table)
+
+            part_fn = (_raw_or_f32_key_fn(part_exprs[0], dense_cfg[2])
+                       if part_exprs else None)
+            return run_window_partition_agg_sharded(
+                select, query.where, table, dense_cfg[0], dense_cfg[1],
+                part_fn, table.mesh)
+        table = local_table(table)
+    note_operator("window", True)
     cols = table.row_columns()
     valid = _row_mask(query.where, table, cols)
     win = _window_values(select, table, cols, valid)
@@ -411,6 +426,11 @@ def _try_fused_window_exprs(query: Query, table, win_nodes, new_items,
     route) or a string literal does not bind."""
     from .executor import bind_strings
 
+    if is_sharded(table):
+        # The hidden-item route: each window runs on its own, the dense
+        # partition aggregates distributed (the reference's fused pass
+        # declines on a mesh too).
+        return None
     tcols = table.columns
     for root in [*new_items, *win_nodes, *order_exprs, pred, query.where]:
         if root is None:

@@ -166,18 +166,20 @@ def windowed_expand(offsets: torch.Tensor, cols, total: int,
                        dtype=torch.int64, device=dev)
     fn = _build.load("windowed_expand").warpdb_windowed_expand
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for s, ptrs in _chunks(words):
-        # Owners and dups come out of the first launch only.
-        first = s == 0
-        _check("windowed_expand", fn(
-            off.data_ptr(), n, total, ctypes.addressof(ptrs), len(ptrs),
-            out[s].data_ptr(), total,
-            own.data_ptr() if (first and own is not None) else None,
-            dup.data_ptr() if first else None, part.data_ptr(),
-            part.shape[0], stream,
-        ))
-        windowed_expand.launches += 1
-        _build.note_launch("windowed_expand", "K3 windowed_expand")
+    # The runtime launches on the current device: make it the columns'.
+    with torch.cuda.device(dev):
+        for s, ptrs in _chunks(words):
+            # Owners and dups come out of the first launch only.
+            first = s == 0
+            _check("windowed_expand", fn(
+                off.data_ptr(), n, total, ctypes.addressof(ptrs), len(ptrs),
+                out[s].data_ptr(), total,
+                own.data_ptr() if (first and own is not None) else None,
+                dup.data_ptr() if first else None, part.data_ptr(),
+                part.shape[0], stream,
+            ))
+            windowed_expand.launches += 1
+            _build.note_launch("windowed_expand", "K3 windowed_expand")
     return own, dup, _unwords(list(out), cols)
 
 
@@ -206,13 +208,15 @@ def uniform_expand(cols, k: int, total: int) -> tuple:
         return _unwords(list(out), cols)
     fn = _build.load("uniform_expand").warpdb_uniform_expand
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for s, ptrs in _chunks(words):
-        _check("uniform_expand", fn(
-            ctypes.addressof(ptrs), len(ptrs), words[0].shape[0], k, total,
-            out[s].data_ptr(), stride, stream,
-        ))
-        uniform_expand.launches += 1
-        _build.note_launch("uniform_expand", "K4 uniform_expand")
+    # The runtime launches on the current device: make it the columns'.
+    with torch.cuda.device(dev):
+        for s, ptrs in _chunks(words):
+            _check("uniform_expand", fn(
+                ctypes.addressof(ptrs), len(ptrs), words[0].shape[0], k, total,
+                out[s].data_ptr(), stride, stream,
+            ))
+            uniform_expand.launches += 1
+            _build.note_launch("uniform_expand", "K4 uniform_expand")
     return _unwords(list(out), cols)
 
 
@@ -243,13 +247,15 @@ def sorted_take(cols, idx: torch.Tensor,
     fn = _build.load("sorted_take").warpdb_sorted_take
     stream = torch.cuda.current_stream(dev).cuda_stream
     grid = _grid(dev, n)
-    for s, ptrs in _chunks(words):
-        _check("sorted_take", fn(
-            ctypes.addressof(ptrs), len(ptrs), idx64.data_ptr(), vptr, n,
-            out[s].data_ptr(), n, grid, stream,
-        ))
-        sorted_take.launches += 1
-        _build.note_launch("sorted_take", "K5 sorted_take")
+    # The runtime launches on the current device: make it the columns'.
+    with torch.cuda.device(dev):
+        for s, ptrs in _chunks(words):
+            _check("sorted_take", fn(
+                ctypes.addressof(ptrs), len(ptrs), idx64.data_ptr(), vptr, n,
+                out[s].data_ptr(), n, grid, stream,
+            ))
+            sorted_take.launches += 1
+            _build.note_launch("sorted_take", "K5 sorted_take")
     return _unwords(list(out), cols)
 
 

@@ -158,32 +158,34 @@ def group_counts_sums(gid: torch.Tensor, values, num_slots: int):
         list(range(s, min(s + _COLS_PER_LAUNCH, len(values))))
         for s in range(0, max(len(values), 1), _COLS_PER_LAUNCH)
     ]
-    for b, cols in enumerate(batches):
-        hc = int(b == 0)
-        plan = slice_plan(num_slots, hc, len(cols))
-        # Persistent groups of `slices` blocks, each block of a group with
-        # at least eight rows a thread.
-        resident = _blocks_per_sm(lib.warpdb_group_hist_blocks, dev, hc,
-                                  len(cols), plan) * sms
-        groups = max(1, min(resident // plan.slices,
-                            -(-n // (plan.threads * 8))))
-        partials = torch.empty(groups * (hc + len(cols)) * num_slots,
-                               dtype=torch.int32, device=dev)
-        ptrs = [values[c].data_ptr() for c in cols]
-        ptrs += [None] * (_COLS_PER_LAUNCH - len(ptrs))
-        rc = lib.warpdb_group_hist(
-            gid.data_ptr(), n, num_slots, *ptrs, len(cols),
-            counts.data_ptr() if hc else None,
-            sums[cols[0]].data_ptr() if cols else None,
-            partials.data_ptr(), plan.slices, groups, plan.S, plan.magic,
-            plan.threads, plan.smem, stream,
-        )
-        if rc != 0:
-            raise ExecutionError(
-                f"group kernel launch failed: CUDA error {rc}"
+    # The runtime launches on the current device: make it the ids'.
+    with torch.cuda.device(dev):
+        for b, cols in enumerate(batches):
+            hc = int(b == 0)
+            plan = slice_plan(num_slots, hc, len(cols))
+            # Persistent groups of `slices` blocks, each block of a group with
+            # at least eight rows a thread.
+            resident = _blocks_per_sm(lib.warpdb_group_hist_blocks, dev, hc,
+                                      len(cols), plan) * sms
+            groups = max(1, min(resident // plan.slices,
+                                -(-n // (plan.threads * 8))))
+            partials = torch.empty(groups * (hc + len(cols)) * num_slots,
+                                   dtype=torch.int32, device=dev)
+            ptrs = [values[c].data_ptr() for c in cols]
+            ptrs += [None] * (_COLS_PER_LAUNCH - len(ptrs))
+            rc = lib.warpdb_group_hist(
+                gid.data_ptr(), n, num_slots, *ptrs, len(cols),
+                counts.data_ptr() if hc else None,
+                sums[cols[0]].data_ptr() if cols else None,
+                partials.data_ptr(), plan.slices, groups, plan.S, plan.magic,
+                plan.threads, plan.smem, stream,
             )
-        group_counts_sums.launches += 1
-        _build.note_launch("group_hist", "K2 group_hist")
+            if rc != 0:
+                raise ExecutionError(
+                    f"group kernel launch failed: CUDA error {rc}"
+                )
+            group_counts_sums.launches += 1
+            _build.note_launch("group_hist", "K2 group_hist")
     return counts, tuple(sums[i] for i in range(len(values)))
 
 

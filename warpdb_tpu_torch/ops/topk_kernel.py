@@ -102,8 +102,10 @@ def topk_candidates(u: torch.Tensor, k: int) -> torch.Tensor:
     ticket, blocks = scratch[:1], scratch[1:].view(torch.float32)
     out = torch.empty((1, kk), dtype=torch.float32, device=dev)
     lib = _build.load("topk")
-    rc = lib.warpdb_topk(u.data_ptr(), n, kk, blocks.data_ptr(),
-                         out.data_ptr(), ticket.data_ptr(), grid, stream)
+    # The runtime launches on the current device: make it the tensor's.
+    with torch.cuda.device(dev):
+        rc = lib.warpdb_topk(u.data_ptr(), n, kk, blocks.data_ptr(),
+                             out.data_ptr(), ticket.data_ptr(), grid, stream)
     if rc != 0:
         raise ExecutionError(f"top-k kernel launch failed: CUDA error {rc}")
     topk_candidates.launches += 1

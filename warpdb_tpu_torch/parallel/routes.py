@@ -1,0 +1,97 @@
+"""The route an operator takes on a sharded table.
+
+One function decides it, for execution and EXPLAIN alike: either the
+operator runs distributed over the shards, or it takes the gather route
+(the shards ``all_gather`` onto the mesh's root device and the
+single-device operator runs there).  The engine asks
+:func:`mesh_route` and dispatches; EXPLAIN names what it answers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..frontend.ast import Aggregation, unalias, walk
+
+__all__ = ["GATHER", "mesh_key_space", "mesh_route"]
+
+GATHER = "gather"
+
+
+def _project_route(query, table) -> str:
+    from ..engine.compiler import raw_int_item
+    from ..engine.executor import _use_topk
+
+    select = unalias(query.select_list[0])
+    if (not query.distinct
+            and not any(isinstance(n, Aggregation) for n in walk(select))
+            and _use_topk(query, select, table,
+                          raw_int_item(select, table.shards[0]))):
+        return "topk"
+    return GATHER
+
+
+def _window_route(query, table) -> str:
+    from ..engine.window_exec import _window_dense_cfg
+
+    select = unalias(query.select_list[0])
+    if query.order_by is None and _window_dense_cfg(
+            select, tuple(select.partition_by or ()), table) is not None:
+        return "dense"
+    return GATHER
+
+
+def mesh_key_space(table, group_keys) -> Optional[int]:
+    """The stats-bounded number of key tuples when it is at most
+    ``shuffle.SMALL_KEYS`` (the mesh GROUP BY then takes the all_gather
+    merge), else None."""
+    from ..engine.optimizer import expr_range
+    from .shuffle import SMALL_KEYS
+
+    space = 1
+    for k in group_keys:
+        rng = expr_range(k, table.stats)
+        if rng is None or not (np.isfinite(rng[0]) and np.isfinite(rng[1])):
+            return None
+        space *= max(int(rng[1] - rng[0] + 1), 1)
+        if space > SMALL_KEYS:
+            return None
+    return space
+
+
+def mesh_route(op: str, table, query=None, join: tuple = ()) -> str:
+    """The route of ``op`` over the sharded ``table``:
+
+    * ``"project"`` (one non-grouped select item of ``query``):
+      ``"topk"``, ORDER BY the item … LIMIT as K1 on each shard and one
+      sort of the gathered candidates; else the gather route;
+    * ``"window"``: ``"dense"``, a dense partition aggregate (one
+      stats-bounded integral key, no ORDER BY) by per-shard slot tables
+      and one psum / pmin / pmax; else the gather route;
+    * ``"group"``: ``"merge"``, the all_gather merge, when stats bound
+      the key tuples to at most ``shuffle.SMALL_KEYS``; else
+      ``"shuffle"``, the map-side combine and all-to-all of partials,
+      which falls back to the row shuffle at run time when a shard holds
+      more than ``shuffle.COMBINE_CAP`` key tuples;
+    * ``"join"`` (``join``: the JOIN's kind and condition):
+      ``"shuffle"``, the hash-partitioned shuffle join, for INNER and
+      LEFT equi-joins;
+      ``"shuffle+gather"`` for RIGHT and FULL (the shuffle join, then
+      the build side's misses appended on the gathered result); the
+      gather route for CROSS;
+    * any other operator: the gather route."""
+    if op == "project":
+        return _project_route(query, table)
+    if op == "window":
+        return _window_route(query, table)
+    if op == "group":
+        return ("shuffle" if mesh_key_space(table, query.group_by.keys)
+                is None else "merge")
+    if op == "join":
+        kind, condition = join
+        if kind == "cross" or condition is None:
+            return GATHER
+        return "shuffle+gather" if kind in ("right", "full") else "shuffle"
+    return GATHER

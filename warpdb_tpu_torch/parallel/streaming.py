@@ -1,4 +1,4 @@
-"""Out-of-core streaming execution on one device.
+"""Out-of-core streaming execution on one device or a mesh.
 
 Counterpart of ``warpdb_tpu/parallel/streaming.py``: a file streams in
 chunks of ``rows_per_chunk`` rows (``storage/chunks.py``); each chunk is
@@ -21,8 +21,9 @@ String columns, and int64 columns whose values leave the int32 range in
 any chunk, encode against one sorted vocabulary built by a host pre-pass
 over the stream (``_stream_grouped``), so that group keys from different chunks compare.  (The
 reference builds it for strings only and merges the per-chunk codes of
-wide int64 keys from different vocabularies.)  ``mesh`` must be None:
-multi-device execution is not ported yet.
+wide int64 keys from different vocabularies.)  With a ``mesh`` each
+chunk (and each dimension table) is sharded over it, with the stream's
+vocabularies, and runs through the distributed operators.
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ class _DeviceSpan:
 
     def __init__(self, stats: StreamStats, device: torch.device):
         self.stats = stats
-        self.on = device.type == "cuda" and stats._events is not None
+        self.on = _root(device).type == "cuda" and stats._events is not None
 
     def __enter__(self):
         if self.on:
@@ -151,11 +152,20 @@ def _chunks(path, rows_per_chunk, schema, prepass: bool = False):
         it.close()
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        from ..api import MESH_REFUSAL
+def _placement(mesh, device):
+    """Where the stream's chunks go: ``mesh`` (a DataMesh wider than one
+    local device), else one device (a one-device mesh's, or ``device``,
+    None meaning the card)."""
+    from ..api import resolve_device
 
-        raise UnsupportedError(MESH_REFUSAL)
+    if mesh is None:
+        return resolve_device(device)
+    return resolve_device(mesh.devices[0]) if mesh.single_device else mesh
+
+
+def _root(place) -> torch.device:
+    """The device a placement's results land on."""
+    return place if isinstance(place, torch.device) else place.root
 
 
 def _rows_per_chunk(rows_per_chunk: Optional[int]) -> int:
@@ -166,7 +176,11 @@ def _rows_per_chunk(rows_per_chunk: Optional[int]) -> int:
     return rows_per_chunk
 
 
-def _upload(chunk: HostTable, device, dicts=None) -> DeviceTable:
+def _upload(chunk: HostTable, device, dicts=None):
+    if not isinstance(device, torch.device):
+        from .sharded import shard_table
+
+        return shard_table(chunk, device, dicts_override=dicts)
     return DeviceTable.from_host(chunk, device=device, keep_host=False,
                                  dicts_override=dicts)
 
@@ -182,11 +196,10 @@ def run_streaming_csv(
     """Stream ``csv_path`` in chunks, evaluating ``expr [WHERE cond]`` on
     every chunk on ``device`` (None: the card); results concatenate in
     row order (filtered-out rows 0.0)."""
-    from ..api import _split_where, resolve_device
+    from ..api import _split_where
     from ..engine.executor import run_expression_device
 
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    device = _placement(mesh, device)
     if not expr or not expr.strip():
         raise WarpDBError("Empty query expression")
     rows_per_chunk = _rows_per_chunk(rows_per_chunk)
@@ -232,7 +245,7 @@ def run_streaming_csv(
                 )
             out = run_expression_device(dt, expr_ast, cond_ast)
             event = None
-            if device.type == "cuda":
+            if _root(device).type == "cuda":
                 host = torch.empty(out.shape, dtype=out.dtype,
                                    pin_memory=True)
                 host.copy_(out, non_blocking=True)
@@ -340,6 +353,10 @@ def _wide_names(chunk: HostTable, vocabs: dict) -> set:
 
 
 def _dims_on(dims: dict, device) -> dict:
+    if not isinstance(device, torch.device):
+        from .sharded import shard_table
+
+        return {name: shard_table(ht, device) for name, ht in dims.items()}
     return {name: DeviceTable.from_host(ht, device=device)
             for name, ht in dims.items()}
 
@@ -354,7 +371,8 @@ def run_streaming_sql(
     device=None,
 ) -> dict:
     """Out-of-core SQL over ``csv_path`` (any format ``iter_table_chunks``
-    reads) on ``device`` (None: the card): each chunk aggregates on the
+    reads) on ``device`` (None: the card) or sharded over ``mesh``: each
+    chunk aggregates on the
     device into a per-group partial table (keys, counts, sum/min/max per
     value expression), the host merges the partials and applies HAVING /
     ORDER BY / LIMIT to the merged table.  Per-row statements and
@@ -368,10 +386,7 @@ def run_streaming_sql(
     LEFT and CROSS; RIGHT and FULL need whole-stream state).
 
     Returns ``{column_name: list}`` like ``query_sql_table``."""
-    from ..api import resolve_device
-
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    device = _placement(mesh, device)
     stats = _begin_stats()
     out = _run_sql(parse_query(tokenize(sql)), csv_path,
                    _rows_per_chunk(rows_per_chunk), schema, dims or {},
