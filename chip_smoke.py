@@ -89,15 +89,21 @@ Phases, each raising on failure:
    combine's local pass and once on the shuffled rows), ORDER BY …
    LIMIT (K1 once a shard), the INNER and LEFT ``dimk`` joins with
    GROUP BY (K3 in each), the dense partition window, a two-key GROUP BY (the combine
-   shuffle), APPROX_COUNT_DISTINCT (its registers by the gather route)
-   and a 2^19-row CSV streamed over the mesh; each against NumPy and the
+   shuffle), APPROX_COUNT_DISTINCT (each shard's registers, merged by
+   max), the shard routes of ``parallel/project.py`` (a global
+   aggregate by its partials, a filtered projection, a filtered full
+   sort, DISTINCT k with K2 once a shard, a grouped COUNT(DISTINCT) by
+   unique pairs, MEDIAN by the gather of its compacted column; none
+   takes ``mesh_gather``) and a 2^19-row CSV streamed over the mesh;
+   each against NumPy and the
    single-device result (keys, counts and row order exactly, sums within
-   1e-6 of float64), with its collectives and bytes, launches, and the
+   1e-6 of float64), with its collectives and bytes, launches, the root
+   card's peak memory beside the shard's and the result's bytes, and the
    median of 5 warm runs beside the single-device one (through the
    engine, without the facade's Python list; the stream through the
-   facade).  K1 (the top-k), K2 (GROUP BY k) and K3 (both joins) are
-   held to their plain versions on the inputs the path gave the first
-   shard, recorded in one more run of each.  Then a
+   facade).  K1 (the top-k), K2 (GROUP BY k, DISTINCT k) and K3 (both
+   joins) are held to their plain versions on the inputs the path gave
+   the first shard, recorded in one more run of each.  Then a
    ``torch.distributed`` NCCL group of one rank on
    cuda:0: ``make_global_table`` and two distributed GROUP BYs against
    NumPy.
@@ -105,7 +111,8 @@ Phases, each raising on failure:
    runs the same statements with one shard a card in this process, then
    an NCCL group of one process a card (``--rank``, this script once a
    rank), each rank holding its slice and checking every statement and
-   its kernels on its own shard's inputs;
+   its kernels on its own shard's inputs, and printing its own card's
+   peak memory a statement;
 12. with ``--profile`` only: one ``torch.profiler`` run per query (card
    busy time, idle share, largest device items; of the stream,
    ``s_group_k`` and ``s_join_dimk``) and each kernel's registers and
@@ -2049,13 +2056,21 @@ MESH_QUERIES = [
      "WHERE k < 16 GROUP BY quantity, k ORDER BY quantity ASC, k ASC"),
     ("m_hll", "sql", "SELECT quantity, APPROX_COUNT_DISTINCT(k) FROM t "
      "GROUP BY quantity ORDER BY quantity ASC"),
+    ("m_global", "sql", "SELECT COUNT(*), SUM(price), AVG(price), "
+     "MIN(price), MAX(price) FROM t WHERE price > 15"),
+    ("m_project", "sql", "SELECT price * quantity, k FROM t WHERE price > 99"),
+    ("m_sort", "sql", "SELECT price FROM t WHERE price > 99 ORDER BY price"),
+    ("m_distinct_k", "sql", "SELECT DISTINCT k FROM t"),
+    ("m_count_distinct", "sql", "SELECT quantity, COUNT(DISTINCT k) FROM t "
+     "GROUP BY quantity"),
+    ("m_median", "sql", "SELECT MEDIAN(price) FROM t"),
     ("m_stream", "stream", "SELECT quantity, COUNT(*), SUM(price) FROM t "
      "GROUP BY quantity"),
 ]
 # Result columns that are float sums, by statement.
 MESH_SUMS = {"m_group_q": {2}, "m_group_k": {2}, "m_join_inner": {1},
              "m_join_left": {2}, "m_window": {0}, "m_group_2key": {3},
-             "m_stream": {2}}
+             "m_stream": {2}, "m_global": {1, 2}, "m_median": {0}}
 # Sums on the mesh merge in float64 (a shard's partials add in float64,
 # or in K2, which adds its f32 blocks in float64):
 # held to the float64 NumPy sum within this, and to the single-device
@@ -2083,6 +2098,14 @@ def expected_mesh(d: dict, dimk: dict, stream: dict) -> dict:
     pid = np.flatnonzero(pocc)
     pg, skey = np_distinct_pairs(q, k, value_slots=KEY_SLOTS)
     sq = stream["quantity"]
+    ps = np.sort(p)
+    hi = p > f(99)
+    # MEDIAN as the engine interpolates it, in f32.
+    pos = f(0.5) * f(p.size - 1)
+    lo = int(np.floor(pos))
+    frac = f(pos - f(lo))
+    median = ps[lo] * (f(1) - frac) + ps[min(lo + 1, p.size - 1)] * frac
+    kept = p64[keep]
     return {
         "m_scan": [np.where(keep, p * q, f(0))],
         "m_group_q": [np.arange(GROUP_SLOTS), np.bincount(qi),
@@ -2091,7 +2114,7 @@ def expected_mesh(d: dict, dimk: dict, stream: dict) -> dict:
                       np.bincount(ki, minlength=KEY_SLOTS)[occ_k],
                       np.bincount(ki, weights=p64,
                                   minlength=KEY_SLOTS)[occ_k]],
-        "m_topk": [np.sort(p)[::-1][:5]],
+        "m_topk": [ps[::-1][:5]],
         "m_join_inner": [np.arange(GROUP_SLOTS),
                          np.bincount(qi, weights=p64 * wsum[ki])],
         "m_join_left": [np.arange(GROUP_SLOTS),
@@ -2108,6 +2131,14 @@ def expected_mesh(d: dict, dimk: dict, stream: dict) -> dict:
         "m_stream": [np.arange(GROUP_SLOTS), np.bincount(sq),
                      np.bincount(sq, weights=stream["price"].astype(
                          np.float64))],
+        # COUNT(*) is an f32 result, as every aggregate of the engine.
+        "m_global": [[f(kept.size)], [kept.sum()], [kept.sum() / kept.size],
+                     [p[keep].min()], [p[keep].max()]],
+        "m_project": [(p * q)[hi], k[hi]],
+        "m_sort": [np.sort(p[hi])],
+        "m_distinct_k": [np.flatnonzero(occ_k)],
+        "m_count_distinct": [np.arange(GROUP_SLOTS), np_distinct_counts(pg)],
+        "m_median": [[median]],
     }
 
 
@@ -2149,7 +2180,8 @@ def check_mesh(name: str, got: list, single: list, want) -> float:
 # versions on one shard's inputs, and the kernels each gives.
 MESH_KERNEL_CHECKS = {"m_topk": ("topk",), "m_group_k": ("group_hist",),
                       "m_join_inner": ("windowed_expand",),
-                      "m_join_left": ("windowed_expand",)}
+                      "m_join_left": ("windowed_expand",),
+                      "m_distinct_k": ("group_hist",)}
 
 
 @contextlib.contextmanager
@@ -2360,9 +2392,7 @@ def phase_mesh(WarpDB, HostTable, kernels: dict, name: str, tmp, err: dict,
         """The statement through the facade, or with ``engine`` through
         the engine alone (the timed runs: the facade's Python list of a
         2^25-row result costs the same seconds on both sides)."""
-        for t in (db.table, *db._catalog.values()):
-            for memo in JOIN_MEMOS:
-                getattr(t, memo, {}).clear()
+        drop_join_memos(db)
         if engine and kind == "expr":
             ast = db._parse_expr_query(q)
             if db is mdb:
@@ -2385,10 +2415,11 @@ def phase_mesh(WarpDB, HostTable, kernels: dict, name: str, tmp, err: dict,
         return list(db.query_sql_table(q).values())
 
     total = {k: 0 for k in kernels}
+    shard = shard_bytes(mdb.table)
     for n, kind, q in MESH_QUERIES:
         for fn in kernels.values():
             fn.launches = 0
-        got = run(mdb, kind, q)
+        got, mem = root_memory(lambda: run(mdb, kind, q), mesh.root)
         sync_all()
         launch = {k: fn.launches for k, fn in kernels.items()}
         m = metrics.last()
@@ -2407,6 +2438,7 @@ def phase_mesh(WarpDB, HostTable, kernels: dict, name: str, tmp, err: dict,
             raise AssertionError(f"m_group_k: K2 launched "
                                  f"{launch['group_hist']} times, not at "
                                  "least once a shard")
+        check_mesh_route(n, ops, cs, launch, mesh.size)
         if n in MESH_KERNEL_CHECKS:
             with first_kernel_inputs() as first:
                 run(mdb, kind, q)
@@ -2431,8 +2463,73 @@ def phase_mesh(WarpDB, HostTable, kernels: dict, name: str, tmp, err: dict,
             f"({'the facade' if kind == 'stream' else 'the engine'}); "
             "collectives "
             f"{ {op: f'{b} B' for op, b in cs.items()} }; launches {launched}; "
-            f"route {'/'.join(dict.fromkeys(ops))} [{name}] — {q}")
+            f"route {'/'.join(dict.fromkeys(ops))}; "
+            f"{memory_text(mem, shard, got)} [{name}] — {q}")
     return total
+
+
+# The statements of the shard routes (parallel/project.py): no column
+# of the table crosses the mesh, only partials, compacted rows, unique
+# values or registers; m_median's compacted column is its gather.
+MESH_NO_GATHER = {"m_hll", "m_global", "m_project", "m_sort",
+                  "m_distinct_k", "m_count_distinct", "m_median"}
+# m_hll's all_gathers: the GROUP BY merge (3,584 B) and 4 shards x 32
+# groups x 4096 one-byte registers (524,288 B), under about 2.1 MB.
+MESH_HLL_GATHER_MAX = 2_100_000
+
+
+def check_mesh_route(name: str, ops: list, cs: dict, launch: dict,
+                     shards: int) -> None:
+    """The route a shard-route statement must take: no ``mesh_gather``,
+    m_hll's gathers within MESH_HLL_GATHER_MAX, K2 once a shard in the
+    DISTINCT of the 65536-slot ``k``."""
+    if name in MESH_NO_GATHER and "mesh_gather" in ops:
+        raise AssertionError(f"{name}: took the gather route ({ops})")
+    if name == "m_hll" and cs.get("all_gather", 0) > MESH_HLL_GATHER_MAX:
+        raise AssertionError(f"m_hll: all_gather {cs['all_gather']} B")
+    if name == "m_distinct_k" and launch["group_hist"] != shards:
+        raise AssertionError(f"m_distinct_k: K2 launched "
+                             f"{launch['group_hist']} times, not once a "
+                             "shard")
+
+
+def drop_join_memos(db) -> None:
+    """Clear the pushdown, count and eager memos of ``db``'s tables, so
+    that a run (with the join memo off) joins, and launches its join
+    kernels, anew."""
+    for t in (db.table, *db._catalog.values()):
+        for memo in JOIN_MEMOS:
+            getattr(t, memo, {}).clear()
+
+
+def shard_bytes(table) -> int:
+    """The bytes of the first local shard's columns (a tensor named
+    twice counted once)."""
+    cols = {id(c): c for c in table.shards[0].row_columns().values()}
+    return sum(c.numel() * c.element_size() for c in cols.values())
+
+
+def root_memory(fn, root) -> tuple:
+    """``(fn(), (peak, resident))``: ``torch.cuda.max_memory_allocated``
+    of the root card during ``fn`` and what was allocated there before
+    it."""
+    torch.cuda.synchronize(root)
+    torch.cuda.reset_peak_memory_stats(root)
+    resident = torch.cuda.memory_allocated(root)
+    out = fn()
+    torch.cuda.synchronize(root)
+    return out, (torch.cuda.max_memory_allocated(root), resident)
+
+
+def memory_text(mem: tuple, shard: int, result: list) -> str:
+    """The root card's peak beside the shard's bytes and the result's,
+    and the bound 1.25 x (shard + result) on the peak above the
+    resident bytes."""
+    peak, resident = mem
+    out = sum(np.asarray(c).nbytes for c in result)
+    return (f"root peak {peak} B (resident before {resident} B, above it "
+            f"{peak - resident} B; shard {shard} B, result {out} B, "
+            f"1.25 x (shard + result) {int(1.25 * (shard + out))} B)")
 
 
 def rank_main(rank: int, world: int, port: int) -> int:
@@ -2443,8 +2540,10 @@ def rank_main(rank: int, world: int, port: int) -> int:
     import torch.distributed as dist
 
     from warpdb_tpu_torch import WarpDB
+    from warpdb_tpu_torch.config import get_config
     from warpdb_tpu_torch.engine.executor import run_query_table
     from warpdb_tpu_torch.ops import expand
+    from warpdb_tpu_torch.ops import group_kernel as group
     from warpdb_tpu_torch.ops import topk_kernel as topk
     from warpdb_tpu_torch.parallel import multihost, run_expression_sharded
     from warpdb_tpu_torch.storage import HostTable
@@ -2462,26 +2561,41 @@ def rank_main(rank: int, world: int, port: int) -> int:
             {c: v[start:end] for c, v in data.items()}), ROWS, mesh)
         db = WarpDB.from_device_table(table, mesh=mesh, name="t")
         db.register_table("dimk", HostTable.from_dict(dimk))
+        # Every run joins anew, so that the kernel check's run of a join
+        # statement launches K3 again (as the one-process phase does).
+        get_config().join_cache_entries = 0
         want = expected_mesh(data, dimk, {"quantity": np.zeros(1, np.int64),
                                           "price": np.zeros(1, np.float32)})
+        shard = shard_bytes(table)
         err = {"topk": 0.0, "group_hist": 0.0, "windowed_expand": 0.0}
         log(f"rank {rank}/{world}: rows [{start}, {end}) on cuda:{rank}, "
             f"set-up {time.perf_counter() - t0:.3f} s")
         for n, kind, q in MESH_QUERIES:
             if kind == "stream":
                 continue
+            drop_join_memos(db)
             before = (topk.topk_candidates.launches,
-                      expand.windowed_expand.launches)
-            got = ([np.asarray(db.query_sharded(q))] if kind == "expr"
-                   else list(db.query_sql_table(q).values()))
+                      expand.windowed_expand.launches,
+                      group.group_counts_sums.launches)
+            got, mem = root_memory(
+                lambda: ([np.asarray(db.query_sharded(q))] if kind == "expr"
+                         else list(db.query_sql_table(q).values())),
+                torch.device(f"cuda:{rank}"))
             torch.cuda.synchronize()
             k1 = topk.topk_candidates.launches - before[0]
             k3 = expand.windowed_expand.launches - before[1]
+            k2 = group.group_counts_sums.launches - before[2]
             if n == "m_topk" and k1 != 1:
                 raise AssertionError(f"{n}: K1 launched {k1} times")
             if n.startswith("m_join") and k3 != 1:
                 raise AssertionError(f"{n}: K3 launched {k3} times")
+            cs = {}
+            for op, nbytes in metrics.last().collectives:
+                cs[op] = cs.get(op, 0) + nbytes
+            check_mesh_route(n, [o for o, _h in metrics.last().operators],
+                             cs, {"group_hist": k2}, 1)
             if n in MESH_KERNEL_CHECKS:
+                drop_join_memos(db)
                 with first_kernel_inputs() as first:
                     if kind == "expr":
                         db.query_sharded(q)
@@ -2489,12 +2603,10 @@ def rank_main(rank: int, world: int, port: int) -> int:
                         db.query_sql_table(q)
                 check_mesh_kernels(n, first, err, f"rank {rank}")
                 del first
-            cs = {}
-            for op, nbytes in metrics.last().collectives:
-                cs[op] = cs.get(op, 0) + nbytes
             check_mesh(n, got, got, want[n])
             walls = []
             for _ in range(3):
+                drop_join_memos(db)
                 dist.barrier()
                 t1 = time.perf_counter()
                 if kind == "expr":
@@ -2510,7 +2622,7 @@ def rank_main(rank: int, world: int, port: int) -> int:
                 f"{MESH_RTOL} of float64); median of 3 runs through the "
                 f"engine {sorted(walls)[1] * 1e3!r} ms; collectives "
                 f"{ {op: f'{b} B' for op, b in cs.items()} }; K1 {k1}, "
-                f"K3 {k3}")
+                f"K2 {k2}, K3 {k3}; {memory_text(mem, shard, got)}")
     finally:
         dist.destroy_process_group()
     return 0

@@ -4,7 +4,10 @@ assembles the job-wide table and runs the distributed GROUP BY, top-k,
 string-key SQL, the combine shuffle, a star join and an
 APPROX_COUNT_DISTINCT; every rank must return the single-process
 result, and the reference's two-process expectations (its worker's
-NumPy oracle, ``tests/multihost_worker.py``) must hold.
+NumPy oracle, ``tests/multihost_worker.py``) must hold.  A global
+aggregate, a DISTINCT and a grouped APPROX_COUNT_DISTINCT take the shard
+routes (partials, dedupe, registers) on every rank, with the
+single-process operators and collective bytes, and no gather.
 
 The ranks run ``_rank_main`` below in subprocesses, each under its own
 timeout.
@@ -56,6 +59,19 @@ STATEMENTS = {
 }
 
 
+# Statements of the shard routes, run with ``query_sql_table`` (every
+# column), and the operator each must record.
+ROUTE_STATEMENTS = {
+    "global_agg": ("SELECT COUNT(*), SUM(price), AVG(price), MIN(price), "
+                   "MAX(price) FROM t WHERE price > 20",
+                   "sharded_global_agg"),
+    "distinct": ("SELECT DISTINCT hk FROM t WHERE price > 90 "
+                 "ORDER BY hk DESC", "sharded_distinct"),
+    "grouped_hll": ("SELECT k, APPROX_COUNT_DISTINCT(hk) FROM t GROUP BY k "
+                    "ORDER BY k", "sharded_hll"),
+}
+
+
 def _rates() -> dict:
     return {"q": np.arange(16, dtype=np.float32),
             "rate": (np.arange(16, dtype=np.float32) + 1.0) / 16.0}
@@ -94,6 +110,15 @@ def _run(db_of, mesh=None) -> dict:
             db.register_table("rates", HostTable.from_dict(_rates()))
         out[name] = np.asarray(db.query_sql(STATEMENTS[name]),
                                np.float64).tolist()
+    from warpdb_tpu_torch.utils.metrics import last
+
+    db = db_of(["price", "k", "hk"])
+    for name, (sql, _op) in ROUTE_STATEMENTS.items():
+        got = db.query_sql_table(sql)
+        out[name] = [np.asarray(c, np.float64).tolist()
+                     for c in got.values()]
+        out[name + "_ops"] = [o for o, _h in last().operators]
+        out[name + "_collectives"] = [list(c) for c in last().collectives]
     return out
 
 
@@ -134,6 +159,11 @@ def _single_process() -> dict:
     mesh = data_mesh(devices=["cpu"] * WORLD)
     return _run(lambda cols: WarpDB(HostTable.from_dict(
         {c: d[c] for c in cols}), mesh=mesh), mesh)
+
+
+@pytest.fixture(scope="module")
+def single_process() -> dict:
+    return _single_process()
 
 
 @pytest.fixture(scope="module")
@@ -284,3 +314,47 @@ def test_initialize_with_no_peer_raises():
          "timeout_s=3)"],
         capture_output=True, text=True, env=env, timeout=TIMEOUT_S)
     assert proc.returncode != 0
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_STATEMENTS))
+def test_ranks_take_the_shard_routes(ranks, single_process, name):
+    """Each rank runs the statement on its own shard and exchanges only
+    partials, unique values or registers: the single-process operators
+    and collective bytes (both count a collective's bytes over every
+    shard), no gather, and the single-process result."""
+    sql, op = ROUTE_STATEMENTS[name]
+    single = single_process
+    d = _data()
+    for r in ranks:
+        assert op in r[name + "_ops"]
+        assert "mesh_gather" not in r[name + "_ops"]
+        # A rank launches its own shard's kernels, one process every
+        # shard's: the same operators, counted apart.
+        assert (list(dict.fromkeys(r[name + "_ops"]))
+                == list(dict.fromkeys(single[name + "_ops"])))
+        assert r[name + "_collectives"] == single[name + "_collectives"]
+        for got, want, first in zip(r[name], single[name], ranks[0][name]):
+            np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=name)
+            np.testing.assert_array_equal(got, first)
+    price, hk = d["price"], d["hk"]
+    got = ranks[0][name]
+    if name == "global_agg":
+        keep = price[price > np.float32(20)].astype(np.float64)
+        assert single[name + "_collectives"] and all(
+            b < 1024 for _op, b in single[name + "_collectives"])
+        np.testing.assert_array_equal(got[0], [keep.size])
+        np.testing.assert_allclose(got[1], [keep.sum()], rtol=1e-6)
+        np.testing.assert_allclose(got[2], [keep.mean()], rtol=1e-6)
+        np.testing.assert_array_equal(got[3:], [[keep.min()], [keep.max()]])
+    elif name == "distinct":
+        np.testing.assert_array_equal(
+            got[0], np.unique(hk[price > np.float32(90)])[::-1])
+    else:
+        from warpdb_tpu import WarpDB as RefDB
+        from warpdb_tpu.storage import HostTable as RefHost
+
+        ref = RefDB(RefHost.from_dict(
+            {c: d[c] for c in ("price", "k", "hk")})).query_sql_table(sql)
+        np.testing.assert_array_equal(got[0], ref["k"])
+        np.testing.assert_allclose(got[1], list(ref.values())[1],
+                                   rtol=1e-6)

@@ -296,7 +296,9 @@ def test_distribute_method(ref_mesh, big_table):
     assert port.mesh is MESH and port.table.mesh == MESH
     sql = "SELECT MAX(price) FROM t"
     got = port.query_sql(sql)
-    assert _ops() == ["mesh_gather", "global_agg"]
+    # The partials route: a max a shard crosses the mesh, no column.
+    assert _ops() == ["sharded_global_agg"]
+    assert last().collectives == (("all_gather", 4 * N_SHARDS),)
     _exact(got, single.query_sql(sql), ref.query_sql(sql))
 
 
@@ -721,7 +723,11 @@ def test_mesh_approx_count_distinct_matches_single_device(ref_mesh):
            "GROUP BY g ORDER BY g ASC")
     got = port.query_sql_table(sql)
     ops = _ops()
-    assert "sharded_group" in ops and "mesh_gather" in ops
+    # The registers route: each shard's (4, 4096) u8 registers, merged
+    # by max, after the GROUP BY's merge; no column is gathered.
+    assert "sharded_group" in ops and "sharded_hll" in ops
+    assert "mesh_gather" not in ops
+    assert ("all_gather", N_SHARDS * 4 * 4096) in last().collectives
     s, r = single.query_sql_table(sql), ref.query_sql_table(sql)
     _exact(got["g"], s["g"], r["g"])
     # The estimate is the single-device one; the reference's rounds its
@@ -864,7 +870,28 @@ def _win_truth(t):
 ROUTE_CASES = [
     ("SELECT price FROM t ORDER BY price DESC LIMIT 5", "DISTRIBUTED: K1",
      "sharded_topk", None),
-    ("SELECT price FROM t ORDER BY price DESC", "gather route",
+    ("SELECT price FROM t ORDER BY price DESC", "DISTRIBUTED shard route",
+     "sharded_project", None),
+    ("SELECT price * 2, q FROM t WHERE price > 9", "DISTRIBUTED shard route",
+     "sharded_project", None),
+    ("SELECT SUM(price) FROM t WHERE q > 3", "DISTRIBUTED partials",
+     "sharded_global_agg",
+     lambda t: [t["price"][t["q"] > 3].astype(np.float64).sum()]),
+    ("SELECT MAX(price) - MIN(price) FROM t", "DISTRIBUTED partials",
+     "sharded_global_agg", None),
+    ("SELECT DISTINCT q FROM t ORDER BY q DESC", "DISTRIBUTED dedupe",
+     "sharded_distinct", None),
+    ("SELECT COUNT(DISTINCT k) FROM t", "DISTRIBUTED dedupe",
+     "sharded_global_agg", None),
+    ("SELECT q, COUNT(DISTINCT k) FROM t GROUP BY q", "DISTRIBUTED dedupe",
+     "sharded_count_distinct", None),
+    ("SELECT APPROX_COUNT_DISTINCT(k) FROM t", "DISTRIBUTED registers",
+     "sharded_global_agg", None),
+    ("SELECT q, APPROX_COUNT_DISTINCT(k) FROM t GROUP BY q",
+     "DISTRIBUTED registers", "sharded_hll", None),
+    ("SELECT MEDIAN(price) FROM t WHERE q > 3", "gather route",
+     "sharded_global_agg", None),
+    ("SELECT q, MEDIAN(price) FROM t GROUP BY q", "gather route",
      "mesh_gather", None),
     ("SELECT q, SUM(price) FROM t GROUP BY q", "all_gather merge",
      "sharded_group", lambda t: _group_truth(t["q"], t["price"])[1]),

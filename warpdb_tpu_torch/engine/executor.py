@@ -65,11 +65,11 @@ from ..storage.strings import literal_code
 from ..ops.aggregate import count_distinct
 from ..ops.hll import hll_estimate, hll_grouped_registers
 from ..ops.sort import (
+    distinct_values,
     float_sort_key,
     lexsort,
     order_key,
     sort_by_keys,
-    sort_key_any,
     sort_pairs,
     sort_values,
     top_k_values,
@@ -85,7 +85,7 @@ from .compiler import (
     raw_int_item,
 )
 from ..parallel.routes import mesh_route
-from ..parallel.sharded import is_sharded, local_table
+from ..parallel.sharded import is_sharded
 from ..utils.metrics import note_operator
 from .group_exec import (
     _collect_agg_specs,
@@ -906,8 +906,11 @@ def _run_projection_multi(query: Query, table, select_items: list) -> list:
     """Non-grouped multi-item SELECT: every item over one WHERE mask,
     carried through one stable sort (ORDER BY) or the mask's order;
     row-aligned by construction (reference ``_run_projection_multi``)."""
+    if is_sharded(table):
+        from ..parallel.project import project_sharded
+
+        return project_sharded(query, table, select_items)
     note_operator("project_multi", True)
-    table = local_table(table)
     raw_specs = [raw_int_item(s, table) for s in select_items]
     outs = [_row_values(s, table, r) for s, r in zip(select_items, raw_specs)]
     valid = _where_mask(query, table)
@@ -969,21 +972,14 @@ def _use_topk(query: Query, select, table, raw_spec) -> bool:
 def _run_projection(query: Query, table) -> np.ndarray:
     """Non-grouped SELECT of one item: projection, WHERE, ORDER BY (top-k
     or full sort), DISTINCT; one device→host transfer.  On a sharded
-    table the top-k and the dense partition window are distributed;
-    everything else takes the gather route."""
+    table every route is distributed (``mesh_route``): the top-k, the
+    shard route, the partials of global aggregates, DISTINCT by
+    dedupe."""
     select = query.select_list[0]
     if isinstance(select, WindowFunction):
         return _run_window(query, table)
     if is_sharded(table):
-        limit_total = (query.limit or 0) + (query.offset or 0)
-        if mesh_route("project", table, query) == "topk":
-            from ..parallel.sharded import run_topk_sharded
-
-            out, total = run_topk_sharded(
-                select, query.where, table,
-                _next_pow2(max(limit_total, 16)), query.order_by.ascending)
-            return out[: min(limit_total, total)].astype(np.float32)
-        table = local_table(table)
+        return _run_projection_sharded(query, table, select)
     if isinstance(select, Aggregation):
         return _run_global_agg(query, table)
     if any(isinstance(n, Aggregation) for n in walk(select)):
@@ -1025,6 +1021,38 @@ def _run_projection(query: Query, table) -> np.ndarray:
     return out.cpu().numpy().astype(out_dtype)
 
 
+def _run_projection_sharded(query: Query, table, select) -> np.ndarray:
+    """``_run_projection`` over a sharded table, by its ``mesh_route``."""
+    from ..parallel import project
+
+    route = mesh_route("project", table, query)
+    if route == "topk":
+        from ..parallel.sharded import run_topk_sharded
+
+        limit_total = (query.limit or 0) + (query.offset or 0)
+        out, total = run_topk_sharded(
+            select, query.where, table,
+            _next_pow2(max(limit_total, 16)), query.order_by.ascending)
+        return out[: min(limit_total, total)].astype(np.float32)
+    if route == "shard":
+        return project.project_sharded(query, table, [select])[0]
+    if route == "dedupe" and query.distinct and not any(
+            isinstance(n, Aggregation) for n in walk(select)):
+        values = project.distinct_sharded(query, table, select)
+        if query.order_by is not None and not query.order_by.ascending:
+            values = values[::-1].copy()
+        return values
+    # Global aggregates: each by its own route.
+    specs = _collect_agg_specs([select])
+    agg_values = {k: np.float32(v) for k, v in
+                  project.global_aggregates_sharded(query, table,
+                                                    specs).items()}
+    if isinstance(select, Aggregation):
+        return np.asarray([agg_values[specs[0].key]], dtype=np.float32)
+    val = _group_level_eval(select, {}, agg_values)
+    return np.asarray([val], dtype=np.float32).reshape(1)
+
+
 def _run_distinct(query: Query, table, select) -> np.ndarray:
     """SELECT DISTINCT of one item, ascending (reference host sort+unique
     order); ORDER BY … DESC reverses it.  A stats-bounded integral item
@@ -1040,14 +1068,7 @@ def _run_distinct(query: Query, table, select) -> np.ndarray:
     else:
         vals = _row_values(select, table, raw_spec)
         valid = _where_mask(query, table)
-        x = vals if valid is None else vals[valid]
-        if x.numel():
-            k = sort_key_any(x)
-            perm = torch.sort(k, stable=True).indices
-            ks = k[perm]
-            first = torch.ones_like(ks, dtype=torch.bool)
-            first[1:] = ks[1:] != ks[:-1]
-            x = x[perm][first]
+        x = distinct_values(vals if valid is None else vals[valid])
         values = x.cpu().numpy().astype(out_dtype)
     if order is not None and not order.ascending:
         values = values[::-1].copy()

@@ -88,7 +88,32 @@ def _gather_tag(table) -> str:
     route does on a sharded table."""
     mesh = _mesh(table)
     return (f"gather route: the {mesh.size} shards all_gather onto "
-            f"{mesh.root} first")
+            f"{mesh.root} first, only the columns the operator reads, of "
+            "the rows each shard's WHERE keeps")
+
+
+def _route_text(route: str, table) -> str:
+    """What a ``mesh_route`` family does, ``+``-joined families each."""
+    n = _mesh(table).size
+    texts = {
+        "shard": (f"DISTRIBUTED shard route: each of the {n} shards "
+                  "evaluates the items and compacts the rows WHERE keeps "
+                  "(under a LIMIT only its first LIMIT + OFFSET in the "
+                  "statement's order); the pieces gather in row order"),
+        "partials": (f"DISTRIBUTED partials: a count (int64), float64 "
+                     f"sum, min and max on each of the {n} shards, one "
+                     "all_gather of the partials, finished on the merge"),
+        "dedupe": (f"DISTRIBUTED dedupe: each of the {n} shards dedupes "
+                   "its values (DISTINCT: gathered and deduped once more; "
+                   "COUNT(DISTINCT): its (group, value) pairs hash-shuffled "
+                   "to an owner shard, deduped and counted there, one "
+                   "psum of the counts)"),
+        "registers": (f"DISTRIBUTED registers: each of the {n} shards' "
+                      "4096 u8 HyperLogLog registers a group, merged by "
+                      "elementwise max"),
+        GATHER: _gather_tag(table),
+    }
+    return "; ".join(texts[r] for r in route.split("+"))
 
 
 def _join_lines(query: Query, table, catalog: dict) -> list:
@@ -210,8 +235,12 @@ def _group_lines(query: Query, select_items: list, current) -> list:
             "    per-group value statistics: one stable sort by (keys, value) "
             "each; APPROX_COUNT_DISTINCT -> HyperLogLog registers "
             "(scatter_reduce_ amax, exact COUNT(DISTINCT) above 2048 groups); "
-            "STRING_AGG joins on the host"
-            + (f" [{_gather_tag(current)}]" if mesh is not None else ""))
+            "STRING_AGG joins on the host")
+        if mesh is not None:
+            for s in sorted_aggs:
+                lines.append(
+                    f"      {s.agg.name}({_fmt(s.expr)}): "
+                    f"[{_route_text(mesh_route('stat', current, agg=s.agg), current)}]")
     if (tier != "DENSE" and not sorted_aggs and _device_finish(query)
             and mesh is None):
         lines.append(
@@ -260,6 +289,15 @@ def _window_line(w: WindowFunction, current, query: Query) -> str:
     return f"  window: {_fmt(w)}  [{kind}]"
 
 
+def _project_route(query: Query, select_items: list, current) -> str:
+    """``mesh_route("project")`` of the select list, as the executor
+    asks it: a one-item list as it is, a multi-item one (no aggregates:
+    the shard route) likewise."""
+    q = copy.copy(query)
+    q.select_list = list(select_items)
+    return mesh_route("project", current, q)
+
+
 def _takes_topk(query: Query, select_items: list, current) -> bool:
     """Whether the executor runs this projection as a top-k: the gate it
     calls itself (``mesh_route`` on a mesh, ``_use_topk`` on one
@@ -296,7 +334,8 @@ def _order_line(query: Query, select_items: list, current) -> str:
                     f"({mesh.size} shards), k={k}; all_gather of k "
                     "candidates a shard, one sort finishes]")
         return f"  order by: {terms}  [{how}, k={k}]"
-    tail = f"; {_gather_tag(current)}" if mesh is not None else ""
+    tail = ("; on the root over the rows the shards gathered"
+            if mesh is not None else "")
     return f"  order by: {terms}  [stable torch.sort, multi-key{tail}]"
 
 
@@ -306,7 +345,8 @@ def _distinct_line(query: Query, select_items: list, current) -> str:
     if _mesh(current) is not None:
         if len(select_items) > 1 or query.group_by is not None:
             return "  distinct: as GROUP BY over the select list (distributed)"
-        return f"  distinct: sort-unique [{_gather_tag(current)}]"
+        return (f"  distinct: per shard slot occupancy or sort-unique "
+                f"[{_route_text('dedupe', current)}]")
     if (select_items and query.group_by is None
             and slot_tier(current, [select_items[0]], ()) is not None):
         return ("  distinct: DENSE/MIDRANGE slot occupancy (stats-bounded "
@@ -385,7 +425,8 @@ def explain_query(query: Query, table, catalog: Optional[dict] = None,
                 "the host",
         }.get(agg.agg, "single masked torch reduction")
         if _mesh(current) is not None:
-            how += f"; {_gather_tag(current)}"
+            how = _route_text(_project_route(query, select_items, current),
+                              current)
         lines.append(f"  global aggregate: {_fmt(agg)}  [{how}]")
     else:
         line = f"  project: {', '.join(_fmt(s) for s in select_items)}"
@@ -393,8 +434,9 @@ def explain_query(query: Query, table, catalog: Optional[dict] = None,
             if _takes_topk(query, select_items, current):
                 line += (f"  [per shard on its device ({_mesh(current).size}"
                          " shards)]")
-            else:
-                line += f"  [{_gather_tag(current)}]"
+            elif not query.distinct or len(select_items) > 1:
+                line += "  [" + _route_text(_project_route(
+                    query, select_items, current), current) + "]"
         lines.append(line)
 
     if query.order_by is not None:

@@ -16,6 +16,7 @@ whose segments line up with the aggregate table row for row.
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Sequence
 
@@ -49,8 +50,8 @@ from ..ops.aggregate import (
 )
 from ..ops.hll import HLL_M, hll_estimate, hll_grouped_registers
 from ..ops.sort import U32_MAX, float_sort_key, int_sort_key, lexsort
-from ..parallel.routes import mesh_route
-from ..parallel.sharded import is_sharded, local_table
+from ..parallel.routes import GATHER, mesh_route
+from ..parallel.sharded import is_sharded
 from ..utils.metrics import note_operator
 from . import udf as udf_mod
 from .compiler import (
@@ -369,11 +370,15 @@ def _distributed_group(query: Query, table, plan: dict,
     map-side combine and all_to_all of partials, falling back to the row
     shuffle when a shard holds more than its combine capacity of keys.
     Each shard's partial table takes the single-device slot tier where
-    one applies (K2 on the card).  Per-group value
-    statistics (COUNT(DISTINCT), MEDIAN, HyperLogLog, STRING_AGG) take
-    the gather route: one sort per statistic on the root device, whose
-    segments line up with the merged table's ascending keys."""
-    from ..parallel.sharded import run_grouped_sharded
+    one applies (K2 on the card).  Per-group value statistics index the
+    merged table's ascending keys, each by its ``mesh_route("stat")``:
+    APPROX_COUNT_DISTINCT by each shard's registers (the exact
+    COUNT(DISTINCT) above 2048 groups, as on one device), COUNT(DISTINCT)
+    by each shard's unique (group, value) pairs, MEDIAN, PERCENTILE and
+    STRING_AGG by the gather route of the key and value columns the
+    WHERE keeps: one sort per statistic on the root device."""
+    from ..parallel import project
+    from ..parallel.sharded import node_columns, run_grouped_sharded
     from ..parallel.shuffle import combine_shuffle_grouped, shuffle_grouped
 
     group_keys = plan["group_keys"]
@@ -390,20 +395,39 @@ def _distributed_group(query: Query, table, plan: dict,
     keys, counts, values = gp.to_host()
     result = _HostGroupResult(keys, counts, values, gp.num_groups)
     result.raw_int_key = len(keys) == 1 and keys[0].dtype.kind in "iu"
-    if plan["cd_specs"]:
-        local = local_table(table)
-        for spec in plan["cd_specs"]:
-            if spec.agg is AggregationType.STRING_AGG:
-                stat = _grouped_string_agg
-            elif spec.agg is AggregationType.APPROX_COUNT_DISTINCT:
-                stat = functools.partial(_grouped_hll,
-                                         want_registers=not final)
-            else:
-                stat = _grouped_value_order_stat
-            result.dcounts[spec.key] = stat(
-                query, local, group_keys, spec, result.num_groups,
-                raw_int_key=result.raw_int_key,
-            )
+    cd_specs = plan["cd_specs"]
+    gkeys = project.merged_key_sort_keys(gp.keys, result.raw_int_key)
+    args = (query, table, group_keys)
+    gathered = [s for s in cd_specs
+                if mesh_route("stat", table, agg=s.agg) == GATHER]
+    if gathered:
+        # One pruned, filtered gather serves every order statistic.
+        local = table.gather(
+            node_columns(table, [*group_keys, *(s.expr for s in gathered)]),
+            where=query.where)
+        local_query = copy.copy(query)
+        local_query.where = None
+    for spec in cd_specs:
+        key = spec.key
+        route = mesh_route("stat", table, agg=spec.agg)
+        if route == "registers" and _hll_capacity(
+                gp.num_groups, raise_for_stream=not final) is None:
+            spec = _AggSpec(AggregationType.COUNT_DISTINCT, spec.expr)
+            route = "dedupe"
+        if route == "registers":
+            out = project.grouped_hll_sharded(
+                *args, spec, gkeys, result.raw_int_key,
+                want_registers=not final)
+        elif route == "dedupe":
+            out = project.grouped_count_distinct_sharded(
+                *args, spec, gkeys, result.raw_int_key)
+        else:
+            stat = (_grouped_string_agg
+                    if spec.agg is AggregationType.STRING_AGG
+                    else _grouped_value_order_stat)
+            out = stat(local_query, local, group_keys, spec,
+                       result.num_groups, raw_int_key=result.raw_int_key)
+        result.dcounts[key] = out
     return result
 
 
@@ -848,6 +872,26 @@ def _sorted_segments(query, table, group_keys, spec, raw_int_key,
     return vals[perm], sorted_first_flags(tuple(k[perm] for k in skeys))
 
 
+def _hll_capacity(num_groups: int, raise_for_stream: bool = False):
+    """The reference's register-table rows for ``num_groups`` groups,
+    ``next_pow2(max(G, 16))``, or None above ``capacity · m = 2^23``
+    (over 2048 groups), where APPROX_COUNT_DISTINCT returns the exact
+    COUNT(DISTINCT); ``raise_for_stream`` raises there instead (a
+    stream's partial must be registers)."""
+    ng = int(num_groups)
+    capacity = 1 << (max(ng, 16) - 1).bit_length()
+    if capacity * HLL_M <= (1 << 23):
+        return capacity
+    if raise_for_stream:
+        raise UnsupportedError(
+            "APPROX_COUNT_DISTINCT streaming supports up to "
+            f"{(1 << 23) // HLL_M} groups per chunk (got {ng}); use "
+            "COUNT(DISTINCT ...) — its streamed state is bounded by the "
+            "distinct count"
+        )
+    return None
+
+
 def _grouped_hll(query, table, group_keys, spec, num_groups,
                  raw_int_key: bool = False, want_registers: bool = False):
     """Per-group APPROX_COUNT_DISTINCT (HyperLogLog, ``ops/hll.py``): one
@@ -861,15 +905,7 @@ def _grouped_hll(query, table, group_keys, spec, num_groups,
     rows and keeps ``capacity · m ≤ 2^23``; above that (over 2048 groups)
     it returns the EXACT COUNT(DISTINCT), as this port does."""
     ng = int(num_groups)
-    capacity = 1 << (max(ng, 16) - 1).bit_length()
-    if capacity * HLL_M > (1 << 23):
-        if want_registers:
-            raise UnsupportedError(
-                "APPROX_COUNT_DISTINCT streaming supports up to "
-                f"{(1 << 23) // HLL_M} groups per chunk (got {ng}); use "
-                "COUNT(DISTINCT ...) — its streamed state is bounded by the "
-                "distinct count"
-            )
+    if _hll_capacity(ng, raise_for_stream=want_registers) is None:
         exact = _AggSpec(AggregationType.COUNT_DISTINCT, spec.expr)
         return _grouped_value_order_stat(query, table, group_keys, exact,
                                          num_groups, raw_int_key=raw_int_key)

@@ -37,6 +37,7 @@ from ..frontend.ast import (
     BinaryOp,
     CaseWhen,
     Constant,
+    column_refs,
     FunctionCall,
     GroupBy,
     Join,
@@ -318,11 +319,17 @@ def _materialize_join(left, right, right_name: str, cond: Optional[Node],
         if hit is not None:
             return hit[0]  # hit[1] keeps the build table (and its uid) alive
 
+    cond_names = set() if cond is None else {
+        nm for v in column_refs(cond) for nm in (v.name, v.unqualified)}
     if kind in ("right", "full"):
         base = _materialize_join(left, right, right_name, cond, needed,
                                  "inner" if kind == "right" else "left")
-        out = _append_build_misses(local_table(base), local_table(left),
-                                   local_table(right), right_name, pairs)
+        # The tail reads the probe's keys and the build columns the
+        # joined table carries.
+        out = _append_build_misses(
+            local_table(base), _one_device(left, cond_names),
+            _one_device(right, cond_names | set(base.columns), right_name),
+            right_name, pairs, left_names=set(left.columns))
     elif (mesh is not None
           and mesh_route("join", left, join=(kind, cond)) == "shuffle"):
         from ..parallel.dist_join import distributed_join_table
@@ -332,8 +339,10 @@ def _materialize_join(left, right, right_name: str, cond: Optional[Node],
     else:
         # CROSS stays on one device: hashing a constant key would land
         # every row on one shard anyway.
-        out = _materialize_join_local(local_table(left), local_table(right),
-                                      right_name, pairs, needed, kind)
+        want = None if needed is None else set(needed) | cond_names
+        out = _materialize_join_local(
+            _one_device(left, want), _one_device(right, want, right_name),
+            right_name, pairs, needed, kind)
     if mesh is not None and not is_sharded(out):
         from ..parallel.sharded import _ensure_sharded
 
@@ -483,11 +492,26 @@ def _materialize_join_local(left, right, right_name: str, pairs,
                          total_emit, total_emit, n_miss)
 
 
+def _one_device(table, names: Optional[set], right_name: str = ""):
+    """``table`` on one device: a sharded table takes the gather route
+    for the columns ``names`` holds (bare, or qualified by the build
+    side's ``right_name``), every column for None."""
+    if not is_sharded(table):
+        return table
+    if names is None:
+        return table.gather()
+    return table.gather([c for c in table.columns
+                         if c in names or f"{right_name}.{c}" in names])
+
+
 def _append_build_misses(base, left, right, right_name: str,
-                         pairs) -> DeviceTable:
+                         pairs, left_names=None) -> DeviceTable:
     """RIGHT/FULL tail: build rows whose key matches no probe row (a
     swapped phase 1), appended after ``base`` in build order; probe-side
-    columns take the missing-value marker."""
+    columns take the missing-value marker.  ``left_names``: the probe's
+    column names where ``left`` holds only its key columns."""
+    if left_names is None:
+        left_names = left.columns
     lkeys, rkeys = _join_keys(left, right, right_name, pairs)
     p1 = join_match_counts(rkeys, None, lkeys, None)
     miss_idx = torch.nonzero(p1.counts == 0).reshape(-1)
@@ -501,7 +525,7 @@ def _append_build_misses(base, left, right, right_name: str,
         if (name.startswith(right_name + ".")
                 and name[len(right_name) + 1:] in right.columns):
             src = name[len(right_name) + 1:]
-        elif name not in left.columns and name in right.columns:
+        elif name not in left_names and name in right.columns:
             src = name
         spec.append((name, src))
 

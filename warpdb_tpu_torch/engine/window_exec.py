@@ -45,7 +45,7 @@ from ..frontend.ast import (
 )
 from ..ops.sort import sort_by_keys
 from ..parallel.routes import mesh_route
-from ..parallel.sharded import is_sharded, local_table
+from ..parallel.sharded import is_sharded, node_columns
 from ..utils.metrics import note_operator
 from ..ops.window import (
     dense_window_aggregate,
@@ -259,7 +259,14 @@ def _run_window(query: Query, table) -> np.ndarray:
             return run_window_partition_agg_sharded(
                 select, query.where, table, dense_cfg[0], dense_cfg[1],
                 part_fn, table.mesh)
-        table = local_table(table)
+        # The gather route: the columns the window and the ORDER BY
+        # read, of the rows WHERE keeps (it precedes the window).
+        order_exprs = [t.expr for t in
+                       (query.order_by.terms if query.order_by else ())]
+        table = table.gather(node_columns(table, [select, *order_exprs]),
+                             where=query.where)
+        query = copy.copy(query)
+        query.where = None
     note_operator("window", True)
     cols = table.row_columns()
     valid = _row_mask(query.where, table, cols)

@@ -23,7 +23,7 @@ from .topk_kernel import MAX_K, topk_candidates
 __all__ = [
     "sort_values", "sort_pairs", "sort_by_keys", "top_k_values",
     "order_key", "float_sort_key", "int_sort_key", "sort_key_any",
-    "lexsort", "U32_MAX",
+    "lexsort", "distinct_values", "U32_MAX",
 ]
 
 U32_MAX = 0xFFFFFFFF
@@ -69,6 +69,19 @@ def lexsort(keys) -> torch.Tensor:
     for k in reversed(keys[:-1]):
         perm = perm[torch.sort(k[perm], stable=True).indices]
     return perm
+
+
+def distinct_values(x: torch.Tensor) -> torch.Tensor:
+    """The distinct values of ``x`` ascending (``sort_key_any`` order:
+    NaN last, -0.0 equal to +0.0), each as its first occurrence."""
+    if not x.numel():
+        return x
+    k = sort_key_any(x)
+    perm = torch.sort(k, stable=True).indices
+    ks = k[perm]
+    first = torch.ones_like(ks, dtype=torch.bool)
+    first[1:] = ks[1:] != ks[:-1]
+    return x[perm][first]
 
 
 def sort_values(values: torch.Tensor, mask, ascending: bool) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """The route an operator takes on a sharded table.
 
 One function decides it, for execution and EXPLAIN alike: either the
-operator runs distributed over the shards, or it takes the gather route
-(the shards ``all_gather`` onto the mesh's root device and the
-single-device operator runs there).  The engine asks
-:func:`mesh_route` and dispatches; EXPLAIN names what it answers.
+operator runs distributed over the shards (one route name a family:
+``"shard"``, ``"partials"``, ``"dedupe"``, ``"registers"``, ``"topk"``,
+``"dense"``, ``"merge"``, ``"shuffle"``), or it takes the gather route
+(the columns the operator reads, filtered on each shard, ``all_gather``
+onto the mesh's root device and the single-device operator runs
+there).  The engine asks :func:`mesh_route` and dispatches; EXPLAIN
+names what it answers.
 """
 
 from __future__ import annotations
@@ -13,11 +16,31 @@ from typing import Optional
 
 import numpy as np
 
-from ..frontend.ast import Aggregation, unalias, walk
+from ..frontend.ast import Aggregation, AggregationType, unalias, walk
 
-__all__ = ["GATHER", "mesh_key_space", "mesh_route"]
+__all__ = ["GATHER", "agg_route", "mesh_key_space", "mesh_route"]
 
 GATHER = "gather"
+
+# The route of an aggregate's mergeable state; every other aggregate
+# (COUNT, SUM, AVG, MIN, MAX) takes "partials".
+_AGG_ROUTES = {
+    AggregationType.COUNT_DISTINCT: "dedupe",
+    AggregationType.APPROX_COUNT_DISTINCT: "registers",
+    AggregationType.MEDIAN: GATHER,
+    AggregationType.PERCENTILE: GATHER,
+    AggregationType.STRING_AGG: GATHER,
+}
+
+
+def agg_route(agg) -> str:
+    """The route of one aggregate over a sharded table: ``"partials"``
+    (a count, float64 sum, min and max a shard, merged), ``"dedupe"``
+    (each shard's unique values or (group, value) pairs, deduped once
+    more), ``"registers"`` (HyperLogLog registers, merged by max) or
+    the gather route (the compacted value column, for an order
+    statistic or STRING_AGG)."""
+    return _AGG_ROUTES.get(agg, "partials")
 
 
 def _project_route(query, table) -> str:
@@ -25,12 +48,17 @@ def _project_route(query, table) -> str:
     from ..engine.executor import _use_topk
 
     select = unalias(query.select_list[0])
-    if (not query.distinct
-            and not any(isinstance(n, Aggregation) for n in walk(select))
+    aggs = [n.agg for it in query.select_list for n in walk(unalias(it))
+            if isinstance(n, Aggregation)]
+    if aggs:
+        return "+".join(dict.fromkeys(agg_route(a) for a in aggs))
+    if query.distinct:
+        return "dedupe"
+    if (len(query.select_list) == 1
             and _use_topk(query, select, table,
                           raw_int_item(select, table.shards[0]))):
         return "topk"
-    return GATHER
+    return "shard"
 
 
 def _window_route(query, table) -> str:
@@ -61,12 +89,22 @@ def mesh_key_space(table, group_keys) -> Optional[int]:
     return space
 
 
-def mesh_route(op: str, table, query=None, join: tuple = ()) -> str:
+def mesh_route(op: str, table, query=None, join: tuple = (),
+               agg=None) -> str:
     """The route of ``op`` over the sharded ``table``:
 
-    * ``"project"`` (one non-grouped select item of ``query``):
-      ``"topk"``, ORDER BY the item … LIMIT as K1 on each shard and one
-      sort of the gathered candidates; else the gather route;
+    * ``"project"`` (the non-grouped select list of ``query``): over
+      aggregates, the ``agg_route`` of each, joined by ``+`` in order of
+      appearance (``"partials"``, ``"partials+gather"``, …); a one-item
+      DISTINCT ``"dedupe"``; ``"topk"``, ORDER BY the item … LIMIT as K1
+      on each shard and one sort of the gathered candidates; else
+      ``"shard"``, each shard evaluating and compacting its rows (under
+      a LIMIT only its first LIMIT + OFFSET in the statement's order),
+      gathered in row order, an ORDER BY sorted on the root;
+    * ``"stat"``: a per-group statistic of a distributed GROUP BY, the
+      ``agg_route`` of ``agg`` (APPROX_COUNT_DISTINCT over more than
+      2048 groups takes the exact COUNT(DISTINCT), as on one device:
+      ``"dedupe"``);
     * ``"window"``: ``"dense"``, a dense partition aggregate (one
       stats-bounded integral key, no ORDER BY) by per-shard slot tables
       and one psum / pmin / pmax; else the gather route;
@@ -84,6 +122,8 @@ def mesh_route(op: str, table, query=None, join: tuple = ()) -> str:
     * any other operator: the gather route."""
     if op == "project":
         return _project_route(query, table)
+    if op == "stat":
+        return agg_route(agg)
     if op == "window":
         return _window_route(query, table)
     if op == "group":

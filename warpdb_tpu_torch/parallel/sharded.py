@@ -24,9 +24,13 @@ and exchanges through ``mesh.comm`` (``comm.py``):
   the midrange tier; the sorted tier otherwise), gathered and
   re-aggregated, sums in float64.
 
-An operator the port has no distributed route for gathers the shards
-onto the mesh's root device and runs the single-device operator there
-(:meth:`ShardedTable.gather`), where the reference relies on GSPMD.
+Projections, global aggregates, DISTINCT and the per-group distinct
+statistics run on every shard too (``project.py``).  An operator that
+needs a global order (a full window ORDER BY, MEDIAN, STRING_AGG, the
+outer joins' tails) gathers onto the mesh's root device and runs the
+single-device operator there (:meth:`ShardedTable.gather`, where the
+reference relies on GSPMD), moving only the columns it reads, after
+each shard has dropped the rows its WHERE rejects.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..errors import ExecutionError
-from ..frontend.ast import Node
+from ..frontend.ast import Node, Variable, WindowFunction, walk
 from ..ops.aggregate import (
     group_scatter_stage,
     group_sort_stage,
@@ -55,6 +59,7 @@ __all__ = [
     "shard_table",
     "local_table",
     "is_sharded",
+    "node_columns",
     "run_expression_sharded",
     "run_topk_sharded",
     "run_grouped_sharded",
@@ -115,26 +120,55 @@ class ShardedTable:
     def device(self) -> torch.device:
         return self.mesh.root
 
-    def gather(self) -> DeviceTable:
-        """The gather route: every shard's columns concatenated, in row
+    def gather(self, columns=None, where: Optional[Node] = None
+               ) -> DeviceTable:
+        """The gather route: the shards' columns concatenated, in row
         order, into one DeviceTable on the mesh's root device (one
-        ``all_gather``), for an operator with no distributed route."""
+        ``all_gather``), for an operator with no distributed route.
+        ``columns`` (names) keeps only those; ``where`` (a bound
+        condition) drops on each shard the rows it rejects before
+        anything moves.  Stats stay the global ones (bounds of any
+        subset); a pruned or filtered table has no host mirror."""
+        from ..engine.group_exec import _row_mask
+
         note_operator("mesh_gather", True)
-        names = list(self.shards[0].columns) if self.shards else []
+        first = self.shards[0].columns
+        keep = None if columns is None else set(columns)
+        names = [n for n in first if keep is None or n in keep]
         # Joined tables name one tensor twice (bare and qualified):
         # gather it once.
-        first = self.shards[0].columns if self.shards else {}
         uniq: dict = {}
         for name in names:
             uniq.setdefault(id(first[name]), name)
         src = list(uniq.values())
-        parts = [tuple(s.row_columns()[n] for n in src) for s in self.shards]
-        got = self.mesh.comm.all_gather(parts)
-        cat = {n: torch.cat([g[i] for g in got]) for i, n in enumerate(src)}
-        cols = {n: cat[uniq[id(first[n])]] for n in names}
-        return DeviceTable(cols, dict(self.dtypes), self.num_rows,
-                           self.num_rows, stats=dict(self.stats),
-                           host=self.host, dicts=dict(self.dicts),
+        parts, kept = [], []
+        for s in self.shards:
+            rows = s.row_columns()
+            cols = tuple(rows[n] for n in src)
+            if where is not None:
+                mask = _row_mask(where, s, rows)
+                cols = tuple(c[mask] for c in cols)
+                kept.append(int(mask.sum()))
+            parts.append(cols)
+        cat = []
+        if src:
+            got = self.mesh.comm.all_gather(parts)
+            cat = [torch.cat([g[i] for g in got]) for i in range(len(src))]
+            num_rows = int(cat[0].shape[0])
+        elif where is not None:
+            num_rows = sum(self.mesh.comm.gather_ints(kept))
+        else:
+            num_rows = self.num_rows
+        by_src = dict(zip(src, cat))
+        cols = {n: by_src[uniq[id(first[n])]] for n in names}
+        whole = keep is None and where is None
+        return DeviceTable(cols, {n: self.dtypes[n] for n in names},
+                           num_rows, num_rows,
+                           stats={n: st for n, st in self.stats.items()
+                                  if n in cols},
+                           host=self.host if whole else None,
+                           dicts={n: d for n, d in self.dicts.items()
+                                  if n in cols},
                            device=self.mesh.root)
 
     def __repr__(self) -> str:
@@ -145,6 +179,26 @@ class ShardedTable:
 
 def is_sharded(table) -> bool:
     return isinstance(table, ShardedTable)
+
+
+def node_columns(table, nodes) -> list:
+    """The columns of ``table`` that the expressions ``nodes`` read (a
+    bare or a qualified name), in the table's order; a window's every
+    ORDER BY term counts."""
+    names: set = set()
+
+    def visit(node) -> None:
+        for n in walk(node):
+            if isinstance(n, Variable):
+                names.update((n.name, n.unqualified))
+            elif isinstance(n, WindowFunction) and n.order_by is not None:
+                for t in n.order_by.terms[1:]:
+                    visit(t.expr)
+
+    for root in nodes:
+        if root is not None:
+            visit(root)
+    return [c for c in table.columns if c in names]
 
 
 def local_table(table):
