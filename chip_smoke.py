@@ -1,7 +1,7 @@
 """Drive warpdb_tpu_torch once on a CUDA card, end to end.
 
     python3 chip_smoke.py [--profile | --kernels | --stream | --mesh |
-                           --cards]
+                           --cards | --tiers [--cards] [--sweep=NAME,...]]
 
 Phases, each raising on failure:
 
@@ -84,14 +84,16 @@ Phases, each raising on failure:
 11. mesh: bench.py's table re-laid by ``distribute`` over four shards of
    the one card (``data_mesh(devices=["cuda:0"] * 4)``, 2^23 rows each)
    with ``dimk`` registered: the sharded scan, GROUP BY quantity (the
-   all_gather merge), GROUP BY k (the row shuffle: each shard holds all
-   65536 keys, more than the combine's 16384; K2 once a shard in the
-   combine's local pass and once on the shuffled rows), ORDER BY …
+   all_gather merge, K2 once a shard), GROUP BY k (the row shuffle's
+   all_to_all, K2 on each shard's owned rows), ORDER BY …
    LIMIT (K1 once a shard), the INNER and LEFT ``dimk`` joins with
-   GROUP BY (K3 in each), the dense partition window, a two-key GROUP BY (the combine
-   shuffle), APPROX_COUNT_DISTINCT (each shard's registers, merged by
-   max), the shard routes of ``parallel/project.py`` (a global
-   aggregate by its partials, a filtered projection, a filtered full
+   GROUP BY (K3 in each), the dense partition window, a two-key GROUP
+   BY (the map-side combine's all_to_all), the two GROUP BYs on their
+   routes whatever the merge's threshold (``MESH_FORCED``, each run
+   must show its route), APPROX_COUNT_DISTINCT (each shard's
+   registers, merged by max), the shard routes of
+   ``parallel/project.py`` (a global aggregate by its partials, a
+   filtered projection, a filtered full
    sort, DISTINCT k with K2 once a shard, a grouped COUNT(DISTINCT) by
    unique pairs, MEDIAN by the gather of its compacted column; none
    takes ``mesh_gather``) and a 2^19-row CSV streamed over the mesh;
@@ -106,14 +108,30 @@ Phases, each raising on failure:
    the first shard, recorded in one more run of each.  Then a
    ``torch.distributed`` NCCL group of one rank on
    cuda:0: ``make_global_table`` and two distributed GROUP BYs against
-   NumPy.
+   NumPy, one by the all_gather merge and GROUP BY k by the row
+   shuffle's all_to_all.
    ``--cards`` (on a machine with several cards, not in the default run)
    runs the same statements with one shard a card in this process, then
    an NCCL group of one process a card (``--rank``, this script once a
    rank), each rank holding its slice and checking every statement and
    its kernels on its own shard's inputs, and printing its own card's
    peak memory a statement;
-12. with ``--profile`` only: one ``torch.profiler`` run per query (card
+12. tiers: every routing threshold of the planner (the GROUP BY slot
+   tiers, the window's dense partition broadcast, the grouped device
+   finish, the mesh GROUP BY's merge / combine / row shuffle, the join
+   pushdown gate) forced once from each side (``set_config`` or the
+   module constant) at one size on each side of its default, uniform
+   keys at 2^25 rows, each result against NumPy, K2 against its plain
+   version wherever it runs, and the default configuration's own tier
+   at each size.  ``--tiers`` runs the full sweep instead, after the
+   build and nothing else (``TIER_SWEEPS``: uniform and Zipf(1.3) keys,
+   engine wall and device ms, median of 5 warm runs each, and per
+   threshold the size from which the upper tier wins, the root card's
+   peak memory a point, and TPC-H's 22 queries under both pushdown
+   floors); ``--tiers --cards`` runs its mesh sweeps on an NCCL group
+   of one process a card (``--tier-rank``), one shard a card;
+   ``--sweep=NAME,...`` (spaces as ``-``) keeps the named sweeps alone;
+13. with ``--profile`` only: one ``torch.profiler`` run per query (card
    busy time, idle share, largest device items; of the stream,
    ``s_group_k`` and ``s_join_dimk``) and each kernel's registers and
    spills from ``ptxas -v``.
@@ -135,6 +153,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -238,8 +257,9 @@ TPCH_SEED = 42
 # The kernels the 22 queries reach at that scale: K3 in q13's LEFT join,
 # K5 in the pushdown compactions and semicompact joins.  K1 serves only a
 # one-column ORDER BY … LIMIT (q2 selects several columns, which sort in
-# full, as the reference's ``_run_projection_multi`` does); no grouping
-# takes the midrange tier (K2) and no join fans out uniformly (K4).
+# full, as the reference's ``_run_projection_multi`` does); K2 runs where
+# a SUM/COUNT-only grouping takes a slot tier, and no join fans out
+# uniformly (K4).
 TPCH_KERNELS = ("windowed_expand", "sorted_take")
 
 # f32 sums per group (2^20 rows per group for GROUP BY quantity, 512 for
@@ -2067,6 +2087,12 @@ MESH_QUERIES = [
     ("m_stream", "stream", "SELECT quantity, COUNT(*), SUM(price) FROM t "
      "GROUP BY quantity"),
 ]
+# The GROUP BYs that keep a shuffle route whatever the merge's threshold
+# (``distributed_small_keys``), so that the GROUP BY's all_to_all runs
+# on every mesh and NCCL group: GROUP BY k (65,536 keys a shard, more
+# than the combine holds) by the row shuffle, the two-key GROUP BY (512
+# key tuples a shard) by the map-side combine.  Sides of TIER_SIDES.
+MESH_FORCED = {"m_group_k": "row shuffle", "m_group_2key": "combine"}
 # Result columns that are float sums, by statement.
 MESH_SUMS = {"m_group_q": {2}, "m_group_k": {2}, "m_join_inner": {1},
              "m_join_left": {2}, "m_window": {0}, "m_group_2key": {3},
@@ -2270,8 +2296,9 @@ def _free_port() -> int:
 
 def phase_nccl(HostTable, data: dict, name: str) -> None:
     """The multi-process path as a world-size-1 NCCL group on cuda:0:
-    ``initialize``, ``make_global_table`` and a distributed GROUP BY (the
-    all_gather merge) and a row-shuffle GROUP BY through SQL, each
+    ``initialize``, ``make_global_table``, a distributed GROUP BY by the
+    all_gather merge and, through SQL, GROUP BY k by the row shuffle
+    (its all_to_all; forced, whatever the merge's threshold), each
     against NumPy."""
     import torch.distributed as dist
 
@@ -2306,16 +2333,21 @@ def phase_nccl(HostTable, data: dict, name: str) -> None:
             rtol=MESH_RTOL)
         db = WarpDB.from_device_table(table, mesh=mesh, name="t")
         sql = "SELECT k, COUNT(*) FROM t GROUP BY k"
-        t1 = time.perf_counter()
-        got = db.query_sql_table(sql)
-        wall = time.perf_counter() - t1
-        ops = [o for o, _h in metrics.last().operators]
-        cs2 = metrics.last().collectives
-        walls = []
-        for _ in range(3):
+        with forced("row shuffle"):
             t1 = time.perf_counter()
-            db.query_sql_table(sql)
-            walls.append(time.perf_counter() - t1)
+            got = db.query_sql_table(sql)
+            wall = time.perf_counter() - t1
+            ops = [o for o, _h in metrics.last().operators]
+            cs2 = metrics.last().collectives
+            walls = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                db.query_sql_table(sql)
+                walls.append(time.perf_counter() - t1)
+        if "shuffle_group" not in ops or "combine_shuffle_group" in ops \
+                or not any(op == "all_to_all" for op, _b in cs2):
+            raise AssertionError(f"nccl GROUP BY k: not the row shuffle "
+                                 f"({ops}, {cs2})")
         occ = np.bincount(ki, minlength=KEY_SLOTS)
         np.testing.assert_array_equal(got["k"], np.flatnonzero(occ))
         np.testing.assert_array_equal(list(got.values())[1], occ[occ > 0])
@@ -2332,6 +2364,11 @@ def phase_nccl(HostTable, data: dict, name: str) -> None:
 
 
 def sync_all() -> None:
+    """Wait for every card: in a torch.distributed group, the rank's
+    own (its peers' cards are theirs)."""
+    if _in_group():
+        torch.cuda.synchronize()
+        return
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
 
@@ -2388,10 +2425,17 @@ def phase_mesh(WarpDB, HostTable, kernels: dict, name: str, tmp, err: dict,
         f"rows {mdb.table.shard_rows}), set-up and NumPy "
         f"{time.perf_counter() - t0:.3f} s")
 
+    routes = {q: MESH_FORCED.get(n) for n, _k, q in MESH_QUERIES}
+
     def run(db, kind: str, q: str, engine: bool = False):
         """The statement through the facade, or with ``engine`` through
         the engine alone (the timed runs: the facade's Python list of a
-        2^25-row result costs the same seconds on both sides)."""
+        2^25-row result costs the same seconds on both sides); on the
+        mesh under its MESH_FORCED route."""
+        with forced(routes[q] if db is mdb else None):
+            return run_on(db, kind, q, engine)
+
+    def run_on(db, kind: str, q: str, engine: bool):
         drop_join_memos(db)
         if engine and kind == "expr":
             ast = db._parse_expr_query(q)
@@ -2439,6 +2483,7 @@ def phase_mesh(WarpDB, HostTable, kernels: dict, name: str, tmp, err: dict,
                                  f"{launch['group_hist']} times, not at "
                                  "least once a shard")
         check_mesh_route(n, ops, cs, launch, mesh.size)
+        check_forced_route(n, ops, cs)
         if n in MESH_KERNEL_CHECKS:
             with first_kernel_inputs() as first:
                 run(mdb, kind, q)
@@ -2491,6 +2536,18 @@ def check_mesh_route(name: str, ops: list, cs: dict, launch: dict,
         raise AssertionError(f"m_distinct_k: K2 launched "
                              f"{launch['group_hist']} times, not once a "
                              "shard")
+
+
+def check_forced_route(name: str, ops: list, cs: dict) -> None:
+    """A MESH_FORCED statement took its route, through an all_to_all."""
+    side = MESH_FORCED.get(name)
+    if side is None:
+        return
+    _t, op, not_op, _k2 = TIER_SIDES[side][2]
+    if op not in ops or (not_op is not None and not_op in ops) \
+            or not cs.get("all_to_all"):
+        raise AssertionError(f"{name}: did not take the {side} ({ops}, "
+                             f"collectives {cs})")
 
 
 def drop_join_memos(db) -> None:
@@ -2573,76 +2630,81 @@ def rank_main(rank: int, world: int, port: int) -> int:
         for n, kind, q in MESH_QUERIES:
             if kind == "stream":
                 continue
-            drop_join_memos(db)
-            before = (topk.topk_candidates.launches,
-                      expand.windowed_expand.launches,
-                      group.group_counts_sums.launches)
-            got, mem = root_memory(
-                lambda: ([np.asarray(db.query_sharded(q))] if kind == "expr"
-                         else list(db.query_sql_table(q).values())),
-                torch.device(f"cuda:{rank}"))
-            torch.cuda.synchronize()
-            k1 = topk.topk_candidates.launches - before[0]
-            k3 = expand.windowed_expand.launches - before[1]
-            k2 = group.group_counts_sums.launches - before[2]
-            if n == "m_topk" and k1 != 1:
-                raise AssertionError(f"{n}: K1 launched {k1} times")
-            if n.startswith("m_join") and k3 != 1:
-                raise AssertionError(f"{n}: K3 launched {k3} times")
-            cs = {}
-            for op, nbytes in metrics.last().collectives:
-                cs[op] = cs.get(op, 0) + nbytes
-            check_mesh_route(n, [o for o, _h in metrics.last().operators],
-                             cs, {"group_hist": k2}, 1)
-            if n in MESH_KERNEL_CHECKS:
+            with forced(MESH_FORCED.get(n)):
                 drop_join_memos(db)
-                with first_kernel_inputs() as first:
-                    if kind == "expr":
-                        db.query_sharded(q)
-                    else:
-                        db.query_sql_table(q)
-                check_mesh_kernels(n, first, err, f"rank {rank}")
-                del first
-            check_mesh(n, got, got, want[n])
-            walls = []
-            for _ in range(3):
-                drop_join_memos(db)
-                dist.barrier()
-                t1 = time.perf_counter()
-                if kind == "expr":
-                    run_expression_sharded(db.table,
-                                           *db._parse_expr_query(q))
-                else:
-                    ast, catalog = db._prepare_sql(q)
-                    run_query_table(ast, db._base_table(ast, catalog),
-                                    catalog)
+                before = (topk.topk_candidates.launches,
+                          expand.windowed_expand.launches,
+                          group.group_counts_sums.launches)
+                got, mem = root_memory(
+                    lambda: ([np.asarray(db.query_sharded(q))]
+                             if kind == "expr"
+                             else list(db.query_sql_table(q).values())),
+                    torch.device(f"cuda:{rank}"))
                 torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t1)
-            log(f"rank {rank} {n}: agrees with numpy (sums within "
-                f"{MESH_RTOL} of float64); median of 3 runs through the "
-                f"engine {sorted(walls)[1] * 1e3!r} ms; collectives "
-                f"{ {op: f'{b} B' for op, b in cs.items()} }; K1 {k1}, "
-                f"K2 {k2}, K3 {k3}; {memory_text(mem, shard, got)}")
+                k1 = topk.topk_candidates.launches - before[0]
+                k3 = expand.windowed_expand.launches - before[1]
+                k2 = group.group_counts_sums.launches - before[2]
+                if n == "m_topk" and k1 != 1:
+                    raise AssertionError(f"{n}: K1 launched {k1} times")
+                if n.startswith("m_join") and k3 != 1:
+                    raise AssertionError(f"{n}: K3 launched {k3} times")
+                cs = {}
+                for op, nbytes in metrics.last().collectives:
+                    cs[op] = cs.get(op, 0) + nbytes
+                ops = [o for o, _h in metrics.last().operators]
+                check_mesh_route(n, ops, cs, {"group_hist": k2}, 1)
+                check_forced_route(n, ops, cs)
+                if n in MESH_KERNEL_CHECKS:
+                    drop_join_memos(db)
+                    with first_kernel_inputs() as first:
+                        if kind == "expr":
+                            db.query_sharded(q)
+                        else:
+                            db.query_sql_table(q)
+                    check_mesh_kernels(n, first, err, f"rank {rank}")
+                    del first
+                check_mesh(n, got, got, want[n])
+                walls = []
+                for _ in range(3):
+                    drop_join_memos(db)
+                    dist.barrier()
+                    t1 = time.perf_counter()
+                    if kind == "expr":
+                        run_expression_sharded(db.table,
+                                               *db._parse_expr_query(q))
+                    else:
+                        ast, catalog = db._prepare_sql(q)
+                        run_query_table(ast, db._base_table(ast, catalog),
+                                        catalog)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t1)
+                log(f"rank {rank} {n}: agrees with numpy (sums within "
+                    f"{MESH_RTOL} of float64); median of 3 runs through the "
+                    f"engine {sorted(walls)[1] * 1e3!r} ms; collectives "
+                    f"{ {op: f'{b} B' for op, b in cs.items()} }; K1 {k1}, "
+                    f"K2 {k2}, K3 {k3}; {memory_text(mem, shard, got)}")
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def phase_ranks(name: str, world: int) -> None:
+def phase_ranks(name: str, world: int, tiers: Optional[list] = None) -> None:
     """The multi-process path across ``world`` cards: ``world`` processes
-    of this script (``--rank``), one a card, joined in one NCCL group;
-    each must exit 0 within its time limit."""
+    of this script (``--rank``; with ``tiers``, ``--tier-rank`` and those
+    arguments), one a card, joined in one NCCL group; each must exit 0
+    within its time limit."""
     port = _free_port()
     t0 = time.perf_counter()
+    flag = "--rank" if tiers is None else "--tier-rank"
     procs = [subprocess.Popen(
-        [sys.executable, str(pathlib.Path(__file__).resolve()), "--rank",
-         str(r), str(world), str(port)],
+        [sys.executable, str(pathlib.Path(__file__).resolve()), flag,
+         str(r), str(world), str(port), *(tiers or [])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=600)[0])
+            outs.append(p.communicate(timeout=900)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2655,7 +2717,8 @@ def phase_ranks(name: str, world: int) -> None:
         if p.returncode != 0:
             raise AssertionError(f"rank {r} exited {p.returncode}")
     log(f"ranks: an NCCL group of {world} ranks on {world} cards agrees "
-        f"with numpy on every statement, {time.perf_counter() - t0!r} s")
+        f"with numpy on every {'point' if tiers is not None else 'statement'}"
+        f", {time.perf_counter() - t0!r} s")
 
 
 def phase_profile(run, queries, name: str) -> None:
@@ -2702,18 +2765,745 @@ def phase_ptxas(_build) -> None:
                 log(f"  ptxas {kname} {entry}: {line.strip()}")
 
 
+# --- The planner's crossovers (--tiers) -----------------------------------
+#
+# Every routing threshold of the planner (``warpdb_tpu_torch/config.py``,
+# the combine's capacity ``parallel/shuffle.py:COMBINE_CAP`` and the join
+# pushdown gate ``engine/join_exec.py:PUSHDOWN_*``) timed from both sides:
+# each side is forced through ``set_config`` (or the module constant),
+# every result is held to NumPy, and K2 to its plain version wherever it
+# runs.  The table is bench.py's size (2^25 rows) with one key column per
+# slot count, uniform and Zipf(1.3), each spanning exactly its slots.
+TIER_BIG = 1 << 30
+TIER_KEY_BITS = 24
+TIER_GROUP = "SELECT {key}, COUNT(*), SUM(price) FROM t GROUP BY {key}"
+TIER_WINDOW = "SELECT SUM(price) OVER (PARTITION BY {key}) FROM t"
+# The grouped finish: the midrange tier orders and cuts on the device,
+# the dense tier on the host.
+TIER_FINISH = ("SELECT {key}, SUM(price) AS s FROM t GROUP BY {key} "
+               "ORDER BY s DESC LIMIT 10")
+# A sparse composite key: 32 quantities by the key's values under 16,
+# 512 occupied tuples in a stats-bounded space of 32 x 2^e (m_group_2key's
+# shape; the key's bound ignores the WHERE).
+TIER_GROUP2 = ("SELECT quantity, {key}, COUNT(*), SUM(price) FROM t WHERE "
+               "{key} < 16 GROUP BY quantity, {key} ORDER BY quantity ASC, "
+               "{key} ASC")
+# e2e_join_filtered with its WHERE on price (uniform in [0, 100)) cut to
+# keep a chosen share of the rows.
+TIER_JOIN = ("SELECT SUM(price * rate) FROM t JOIN rates ON quantity = "
+             "rates.quantity WHERE price > {cut} GROUP BY quantity ORDER BY "
+             "quantity ASC LIMIT 5")
+# An expanding join: join_dimk_sum (each probe row meets 0-3 ``dimk``
+# rows, K3) with the same WHERE; run with the eager rewrite off, as
+# join_dimk_sum is, so that the join expands.
+TIER_JOINX = ("SELECT SUM(price * dimk.w) FROM t JOIN dimk ON k = dimk.k "
+              "WHERE price > {cut} GROUP BY quantity ORDER BY quantity ASC "
+              "LIMIT 5")
+# The statement of each kind of sweep.
+TIER_QUERIES = {"group": TIER_GROUP, "mesh": TIER_GROUP,
+                "mesh2": TIER_GROUP2, "window": TIER_WINDOW,
+                "finish": TIER_FINISH, "join": TIER_JOIN,
+                "joinx": TIER_JOINX}
+_MID = {"dense_group_max_slots": 0, "midrange_group_base_slots": TIER_BIG,
+        "midrange_group_max_slots": TIER_BIG}
+# side: (config fields, module constants, what the run must show).  What
+# it must show: ("ops", operator, operator it must not have, K2 launched),
+# ("explain", phrase EXPLAIN names or not, present) or ("pushdown", the
+# probe compacted or not).
+TIER_SIDES = {
+    "dense scatter": ({"dense_group_max_slots": TIER_BIG,
+                       "group_hist_max_slots": 0}, {},
+                      ("ops", "dense_group", None, False)),
+    "dense K2": ({"dense_group_max_slots": TIER_BIG,
+                  "group_hist_max_slots": 1 << 16}, {},
+                 ("ops", "dense_group", None, True)),
+    "midrange K2": ({**_MID, "group_hist_max_slots": 1 << 16}, {},
+                    ("ops", "midrange_group", None, True)),
+    "midrange scatter": ({**_MID, "group_hist_max_slots": 0}, {},
+                         ("ops", "midrange_group", None, False)),
+    "sorted": ({"dense_group_max_slots": 0, "midrange_group_max_slots": 0},
+               {}, ("ops", "group_sort", None, False)),
+    "window dense": ({"dense_group_max_slots": TIER_BIG}, {},
+                     ("explain", "DENSE partition broadcast", True)),
+    "window sorted": ({"dense_group_max_slots": 0}, {},
+                      ("explain", "DENSE partition broadcast", False)),
+    "merge": ({"distributed_small_keys": TIER_BIG}, {},
+              ("ops", "sharded_group", None, None)),
+    "combine": ({"distributed_small_keys": 0},
+                {"parallel.shuffle.COMBINE_CAP": TIER_BIG},
+                ("ops", "combine_shuffle_group", None, None)),
+    "row shuffle": ({"distributed_small_keys": 0},
+                    {"parallel.shuffle.COMBINE_CAP": 0},
+                    ("ops", "shuffle_group", "combine_shuffle_group", None)),
+    "pushdown on": ({"join_filter_pushdown": True},
+                    {"engine.join_exec.PUSHDOWN_MAX_SHARE": 1.0,
+                     "engine.join_exec.PUSHDOWN_MIN_ROWS": 0},
+                    ("pushdown", True)),
+    "pushdown off": ({"join_filter_pushdown": False}, {},
+                     ("pushdown", False)),
+    # TPC-H under each probe floor, the share gate as configured.
+    "floor 4096": ({"join_filter_pushdown": True},
+                   {"engine.join_exec.PUSHDOWN_MIN_ROWS": 4096}, None),
+    "floor 2^25": ({"join_filter_pushdown": True},
+                   {"engine.join_exec.PUSHDOWN_MIN_ROWS": 1 << 25}, None),
+}
+# (threshold, statement kind, sides (the tier below the threshold first),
+# sizes: log2 of the slots (of the key tuples for "mesh2"), or the
+# pushdown's share in percent, rows).
+TIER_SWEEPS = [
+    ("dense K2", "group", ("dense scatter", "dense K2"),
+     [1, 3, *range(5, 14)], (1 << 20, ROWS)),
+    ("window", "window", ("window dense", "window sorted"),
+     [5, 7, 9, 11, 12, 13, 14, 16, 18, 20], (ROWS,)),
+    ("finish", "finish", ("dense K2", "midrange K2"),
+     [5, 7, 9, 10, 11, 12, 13, 14, 16], (ROWS,)),
+    ("hist", "group", ("midrange K2", "midrange scatter"),
+     list(range(12, 17)), (1 << 20, ROWS)),
+    ("midrange", "group", ("midrange scatter", "sorted"),
+     list(range(16, 24)), (1 << 16, 1 << 20, 1 << 23, ROWS)),
+    # Fewer rows than slots: ``midrange_group_base_slots`` alone decides.
+    ("midrange base", "group", ("midrange scatter", "sorted"),
+     list(range(17, 24)), (1 << 10, 1 << 12, 1 << 14)),
+    ("mesh", "mesh", ("merge", "combine", "row shuffle"),
+     list(range(8, 24)), (ROWS,)),
+    ("mesh 2key", "mesh2", ("merge", "combine", "row shuffle"),
+     list(range(8, 24)), (ROWS,)),
+    ("pushdown share", "join", ("pushdown on", "pushdown off"),
+     [1, 10, 25, 50, 75, 90], (ROWS,)),
+    ("pushdown rows", "join", ("pushdown on", "pushdown off"),
+     [1, 10, 50], tuple(1 << e for e in (10, 12, 14, 16, 18, 20, 22, 24,
+                                         25))),
+    ("pushdown expand", "joinx", ("pushdown on", "pushdown off"),
+     [1, 10, 50], tuple(1 << e for e in (12, 16, 18, 20, 22, 24, 25))),
+]
+# The key bits of a "mesh2" size (32 quantities, GROUP_SLOTS).
+TIER_Q_BITS = 5
+
+
+def tier_data(rows: int, bits, zipf: bool = True) -> dict:
+    """``price`` and ``quantity`` as bench.py's, and for each ``e`` in
+    ``bits`` a uniform key ``u<e>`` and (with ``zipf``) a Zipf(1.3) key
+    ``z<e>`` (``(zipf - 1) mod 2^e``: a quarter of the rows on key 0),
+    int32, each spanning exactly 2^e slots (rows 0 and 1 hold its ends,
+    so a prefix of the rows keeps the span)."""
+    g = np.random.default_rng(SEED + 5)
+    d = {"price": g.uniform(0.0, 100.0, rows).astype(np.float32),
+         "quantity": g.integers(0, GROUP_SLOTS, rows).astype(np.float32)}
+    u = g.integers(0, 1 << TIER_KEY_BITS, rows)
+    z = g.zipf(1.3, rows) - 1 if zipf else None
+    for e in bits:
+        srcs = [("u", u >> (TIER_KEY_BITS - e))]
+        if zipf:
+            srcs.append(("z", z % (1 << e)))
+        for pre, src in srcs:
+            col = src.astype(np.int32)
+            col[0], col[1] = 0, (1 << e) - 1
+            d[f"{pre}{e}"] = col
+    # The expanding join's key, as bench.py's ``k``: 2^16 values, f32.
+    d["k"] = (u >> (TIER_KEY_BITS - 16)).astype(np.float32)
+    return d
+
+
+@contextlib.contextmanager
+def forced(side: Optional[str], **extra):
+    """Run the block with ``side``'s configuration fields (through
+    ``set_config``), the fields ``extra`` and ``side``'s module
+    constants, restored afterwards; ``side`` None: ``extra`` alone."""
+    import dataclasses
+    import importlib
+
+    from warpdb_tpu_torch import config
+
+    fields, consts, _want = (TIER_SIDES[side] if side is not None
+                             else ({}, {}, None))
+    fields = {**fields, **extra}
+    cfg = config.get_config()
+    saved = []
+    for path, value in consts.items():
+        mod_name, attr = path.rsplit(".", 1)
+        mod = importlib.import_module(f"warpdb_tpu_torch.{mod_name}")
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, value)
+    config.set_config(dataclasses.replace(cfg, **fields))
+    try:
+        yield
+    finally:
+        config.set_config(cfg)
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+
+
+def tier_engine(db, q: str) -> list:
+    """``q`` through the engine (no facade list), every join memo
+    dropped first; the result's columns on the host."""
+    from warpdb_tpu_torch.engine.executor import run_query_table
+
+    drop_join_memos(db)
+    ast, catalog = db._prepare_sql(q)
+    return list(run_query_table(ast, db._base_table(ast, catalog),
+                                catalog).values())
+
+
+def _in_group() -> bool:
+    """Whether this process is a rank of a torch.distributed group."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def tier_time(fn, reps: int) -> tuple:
+    """``(engine wall ms, device ms)``, each the median of ``reps`` runs
+    (warm: the caller ran ``fn`` first): the host clock from the call to
+    its host result, and CUDA events recorded on the root card around
+    the call.  The ranks of a group meet at a barrier before each run."""
+    import torch.distributed as dist
+
+    walls, devs = [], []
+    for _ in range(reps):
+        if _in_group():
+            dist.barrier()
+        sync_all()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        sync_all()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        devs.append(start.elapsed_time(end))
+    return sorted(walls)[reps // 2], sorted(devs)[reps // 2]
+
+
+class TierWant:
+    """NumPy's answers, memoised by key column and rows."""
+
+    def __init__(self, data: dict, joins: dict):
+        self.data, self.joins, self.memo = data, joins, {}
+        # (mesh, key, rows) at which K2 was held to its plain version.
+        self.k2_held: set = set()
+
+    def group(self, key: str, rows: int) -> tuple:
+        if (key, rows) not in self.memo:
+            k = self.data[key][:rows].astype(np.int64)
+            p = self.data["price"][:rows].astype(np.float64)
+            cnt = np.bincount(k)
+            occ = np.flatnonzero(cnt)
+            self.memo[(key, rows)] = (occ, cnt[occ],
+                                      np.bincount(k, weights=p)[occ])
+        return self.memo[(key, rows)]
+
+    def group2(self, key: str, rows: int) -> tuple:
+        """TIER_GROUP2's answer: quantity, key, count and float64 sum of
+        each occupied (quantity, key < 16) tuple, in key order."""
+        if ("2key", key, rows) not in self.memo:
+            k = self.data[key][:rows].astype(np.int64)
+            q = self.data["quantity"][:rows].astype(np.int64)
+            p = self.data["price"][:rows].astype(np.float64)
+            keep = k < 16
+            pid = q[keep] * 16 + k[keep]
+            cnt = np.bincount(pid, minlength=GROUP_SLOTS * 16)
+            occ = np.flatnonzero(cnt)
+            sums = np.bincount(pid, weights=p[keep],
+                               minlength=GROUP_SLOTS * 16)
+            self.memo[("2key", key, rows)] = (occ // 16, occ % 16, cnt[occ],
+                                              sums[occ])
+        return self.memo[("2key", key, rows)]
+
+    def finish(self, key: str, rows: int) -> tuple:
+        """Every occupied key and its float64 sum, and the ten largest
+        sums in descending order."""
+        occ, _cnt, sums = self.group(key, rows)
+        return occ, sums, np.sort(sums)[::-1][:10]
+
+    def window(self, key: str, rows: int) -> np.ndarray:
+        if ("window", key, rows) not in self.memo:
+            k = self.data[key][:rows].astype(np.int64)
+            p = self.data["price"][:rows].astype(np.float64)
+            self.memo[("window", key, rows)] = np.bincount(k, weights=p)[k]
+        return self.memo[("window", key, rows)]
+
+    def join(self, kind: str, cut: float, rows: int) -> np.ndarray:
+        """TIER_JOIN's (``kind`` "join") or TIER_JOINX's ("joinx") five
+        sums: per quantity, the float64 sum over the matching rows."""
+        p = self.data["price"][:rows]
+        q = self.data["quantity"][:rows].astype(np.int64)
+        hot = p > np.float32(cut)
+        if kind == "join":
+            rate = self.joins["rates"]["rate"].astype(np.float64)
+            w = p.astype(np.float64) * rate[q]
+        else:
+            dk = self.joins["dimk"]["k"].astype(np.int64)
+            wk = np.bincount(dk, weights=self.joins["dimk"]["w"].astype(
+                np.float64), minlength=DIMK_KEYS)
+            k = self.data["k"][:rows].astype(np.int64)
+            hot &= (np.bincount(dk, minlength=DIMK_KEYS) > 0)[k]
+            w = p.astype(np.float64) * wk[k]
+        filt = np.bincount(q[hot], weights=w[hot], minlength=GROUP_SLOTS)
+        present = np.bincount(q[hot], minlength=GROUP_SLOTS) > 0
+        return filt[present][:5]
+
+
+def tier_check(what: str, kind: str, got: list, want: TierWant, key: str,
+               size: int, rows: int) -> None:
+    """Keys and counts exactly, sums within SUM_RTOL of float64."""
+    def exact(col, ref, label):
+        np.testing.assert_array_equal(np.asarray(col).astype(np.int64), ref,
+                                      err_msg=f"{what}: {label}")
+
+    if kind in ("group", "mesh", "mesh2"):
+        *keys, cnt, sums = (want.group(key, rows) if kind != "mesh2"
+                            else want.group2(key, rows))
+        for i, ref in enumerate(keys):
+            exact(got[i], ref, f"key {i}")
+        exact(got[len(keys)], cnt, "counts")
+        np.testing.assert_allclose(np.asarray(got[len(keys) + 1],
+                                              dtype=np.float64),
+                                   sums, rtol=SUM_RTOL, err_msg=what)
+    elif kind == "finish":
+        # Near-equal sums may trade places in f32: the ten sums are
+        # NumPy's ten largest, and each key's sum is NumPy's for it.
+        occ, sums, top = want.finish(key, rows)
+        keys = np.asarray(got[0]).astype(np.int64)
+        vals = np.asarray(got[1], dtype=np.float64)
+        np.testing.assert_allclose(vals, top, rtol=SUM_RTOL, err_msg=what)
+        np.testing.assert_allclose(vals, sums[np.searchsorted(occ, keys)],
+                                   rtol=SUM_RTOL, err_msg=f"{what}: keys")
+    elif kind == "window":
+        np.testing.assert_allclose(np.asarray(got[0], dtype=np.float64),
+                                   want.window(key, rows), rtol=SUM_RTOL,
+                                   err_msg=what)
+    else:
+        w = want.join(kind, 100.0 - size, rows)
+        np.testing.assert_allclose(np.asarray(got[0], dtype=np.float64), w,
+                                   rtol=SUM_RTOL, err_msg=what)
+
+
+def tier_shows(side: str, db, q: str, ops: list, k2: int) -> bool:
+    """Whether the run (its operators ``ops``, ``k2`` K2 launches) took
+    ``side``'s tier."""
+    want = TIER_SIDES[side][2]
+    if want[0] == "ops":
+        _t, op, not_op, k2_want = want
+        return (op in ops and (not_op is None or not_op not in ops)
+                and (k2_want is None or (k2 > 0) == k2_want))
+    if want[0] == "explain":
+        return (want[1] in db.explain(q)) == want[2]
+    return bool(getattr(db.table, "_prefilter_memo", None)) == want[1]
+
+
+def tier_key(kind: str, size: int, dist: str) -> str:
+    """The key column of a point: ``u<bits>`` or ``z<bits>``."""
+    return f"{dist[0]}{size - TIER_Q_BITS if kind == 'mesh2' else size}"
+
+
+def tier_point(db, sweep: str, kind: str, side: str, size: int, rows: int,
+               dist: str, want: TierWant, reps: int, err: dict,
+               force: bool = True, root=None) -> tuple:
+    """One statement at one size under ``side`` (forced, or with
+    ``force=False`` the default configuration, which must take
+    ``side``'s tier): held to NumPy and to its tier, K2 (where it runs)
+    to its plain version on the inputs the path gave it, once for each
+    key, rows and table kind (``want.k2_held``); returns ``(engine wall
+    ms, device ms, K2 launches of the checked run, the root card's peak
+    bytes above its resident bytes in the checked run)``.  ``root``:
+    the card that gathers (default cuda:0)."""
+    from warpdb_tpu_torch.ops import group_kernel as group
+    from warpdb_tpu_torch.utils import metrics
+
+    key = tier_key(kind, size, dist)
+    q = TIER_QUERIES[kind].format(key=key, cut=100.0 - size)
+    what = (f"tiers {sweep} {side}{'' if force else ' (default)'} "
+            f"size={size} rows={rows} {dist}")
+    extra = {"eager_join_aggregation": False} if kind == "joinx" else {}
+    with forced(side if force else None, **extra):
+        before = group.group_counts_sums.launches
+        with metrics.timed_query(q, "sql", rows, 0, "cuda:0"):
+            got, (peak, resident) = root_memory(
+                lambda: tier_engine(db, q), root or torch.device("cuda:0"))
+        sync_all()
+        k2 = group.group_counts_sums.launches - before
+        ops = [o for o, _h in metrics.last().operators]
+        tier_check(what, kind, got, want, key, size, rows)
+        if not tier_shows(side, db, q, ops, k2):
+            raise AssertionError(f"{what}: did not take {side} ({ops}, "
+                                 f"K2 {k2})")
+        held = (kind in ("mesh", "mesh2"), key, rows)
+        if k2 and held not in want.k2_held:
+            want.k2_held.add(held)
+            with first_kernel_inputs() as first:
+                tier_engine(db, q)
+            a = first["group_hist"]
+            _check_group(group, a[0].cpu().numpy(), a[0],
+                         [v.cpu().numpy() for v in a[1]], list(a[1]), a[2],
+                         what, err, {})
+            del first, a
+        wall, dev = tier_time(lambda: tier_engine(db, q), reps)
+    return wall, dev, k2, peak - resident
+
+
+def tier_default(sweep: str, size: int, rows: int, data: dict) -> str:
+    """The side the default configuration takes at ``size`` over the
+    uniform key of ``data`` (a mesh: by the distinct keys each of
+    MESH_SHARDS row ranges holds)."""
+    from warpdb_tpu_torch.config import get_config
+    from warpdb_tpu_torch.engine import join_exec
+    from warpdb_tpu_torch.parallel import shuffle
+
+    cfg = get_config()
+    s = 1 << size
+    if sweep == "dense K2":
+        return "dense K2" if s <= cfg.group_hist_max_slots else "dense scatter"
+    if sweep == "window":
+        return ("window dense" if s <= cfg.dense_group_max_slots
+                else "window sorted")
+    if sweep in ("hist", "midrange", "midrange base", "finish"):
+        if s <= cfg.dense_group_max_slots:
+            return ("dense K2" if s <= cfg.group_hist_max_slots
+                    else "dense scatter")
+        if s > cfg.midrange_group_base_slots and (
+                s > cfg.midrange_group_max_slots or s > rows):
+            return "sorted"
+        return ("midrange K2" if s <= cfg.group_hist_max_slots
+                else "midrange scatter")
+    if sweep in ("mesh", "mesh 2key"):
+        if s <= cfg.distributed_small_keys:
+            return "merge"
+        k = data[tier_key("mesh2" if sweep == "mesh 2key" else "mesh",
+                          size, "uniform")][:rows].astype(np.int64)
+        if sweep == "mesh 2key":
+            q = data["quantity"][:rows].astype(np.int64)
+            k = np.where(k < 16, q * 16 + k, -1)
+        held = max(np.count_nonzero(np.bincount(part[part >= 0]))
+                   for part in np.array_split(k, MESH_SHARDS))
+        return "combine" if held <= shuffle.COMBINE_CAP else "row shuffle"
+    return ("pushdown on" if size <= 100 * join_exec.PUSHDOWN_MAX_SHARE
+            and rows >= join_exec.PUSHDOWN_MIN_ROWS else "pushdown off")
+
+
+def tier_checks() -> list:
+    """The default run's sweeps: one size on each side of each default
+    (``TIER_SWEEPS``' form, uniform keys), and the side the default
+    configuration must take at each."""
+    from warpdb_tpu_torch.config import get_config
+    from warpdb_tpu_torch.engine import join_exec
+    from warpdb_tpu_torch.parallel import shuffle
+
+    cfg = get_config()
+
+    def lg(n: int) -> int:
+        return int(n).bit_length() - 1
+
+    d, h = lg(cfg.dense_group_max_slots), lg(cfg.group_hist_max_slots)
+    b, m = lg(cfg.midrange_group_base_slots), lg(cfg.midrange_group_max_slots)
+    s, c = lg(cfg.distributed_small_keys), lg(shuffle.COMBINE_CAP)
+    share = round(100 * join_exec.PUSHDOWN_MAX_SHARE)
+    floor = join_exec.PUSHDOWN_MIN_ROWS
+    return [
+        ("dense K2", "group", ("dense scatter", "dense K2"), [5], (ROWS,)),
+        ("window", "window", ("window dense", "window sorted"), [d, d + 1],
+         (ROWS,)),
+        ("finish", "finish", ("dense K2", "midrange K2"), [d, d + 1],
+         (ROWS,)),
+        ("hist", "group", ("midrange K2", "midrange scatter"), [h, h + 1],
+         (ROWS,)),
+        ("midrange base", "group", ("midrange scatter", "sorted"),
+         [b, b + 1], (1 << b,)),
+        ("midrange", "group", ("midrange scatter", "sorted"), [m, m + 1],
+         (ROWS,)),
+        *([("mesh", "mesh", ("merge", "combine", "row shuffle"),
+            [s, s + 1], (ROWS,))] if s == c else
+          [("mesh", "mesh", ("merge", "combine"), [s, s + 1], (ROWS,)),
+           ("mesh", "mesh", ("combine", "row shuffle"), [c, c + 1],
+            (ROWS,))]),
+        ("pushdown share", "join", ("pushdown on", "pushdown off"),
+         [max(share - 5, 1), min(share + 5, 99)], (ROWS,)),
+        ("pushdown rows", "join", ("pushdown on", "pushdown off"), [10],
+         (floor // 2, floor)),
+    ]
+
+
+MESH_KINDS = ("mesh", "mesh2")
+
+
+def phase_tiers(WarpDB, HostTable, name: str, err: dict, full: bool,
+                select=None, table_for=None, root=None,
+                quiet: bool = False) -> int:
+    """The planner's thresholds from both sides (``TIER_SWEEPS`` with
+    ``full``, uniform and Zipf keys, median of 5 warm runs, then TPC-H
+    under both pushdown floors; else ``tier_checks``: one size on each
+    side of each default, uniform keys, one timed run, and the default
+    configuration's own tier at each).  ``select``: the names of the
+    sweeps to run (None: all).  The mesh is four shards of cuda:0, or
+    with ``table_for(columns)`` (the facade over a table this rank's
+    group holds, ``--tier-rank``) the group, and then only the mesh
+    sweeps run.  ``root``: the card that gathers.  ``quiet``: check
+    every point, print none (the ranks but the first).  Returns K2's
+    launches in the checked runs."""
+    from warpdb_tpu_torch.config import get_config
+    from warpdb_tpu_torch.parallel import data_mesh
+
+    say = (lambda _m: None) if quiet else log
+    t0 = time.perf_counter()
+    sweeps = TIER_SWEEPS if full else tier_checks()
+    if select is not None:
+        sweeps = [s for s in sweeps if s[0] in select]
+    meshed_only = table_for is not None
+    if meshed_only:
+        sweeps = [s for s in sweeps if s[1] in MESH_KINDS]
+    dists = ("uniform", "zipf") if full else ("uniform",)
+    reps = 5 if full else 1
+    single = {e for sw in sweeps if sw[1] in ("group", "window", "finish")
+              for e in sw[3]}
+    meshed = {e - (TIER_Q_BITS if sw[1] == "mesh2" else 0)
+              for sw in sweeps if sw[1] in MESH_KINDS for e in sw[3]}
+    data = tier_data(ROWS, sorted(single | meshed), zipf=full)
+    joins = make_join_tables()
+    want = TierWant(data, joins)
+    get_config().join_cache_entries = 0
+    dbs: dict = {}
+
+    def db_for(kind: str, rows: int):
+        """The sweep's table: the first ``rows`` rows of ``price``,
+        ``quantity`` and the key columns of its kind (a mesh: over the
+        mesh's shards; else with ``k`` and the join tables)."""
+        mkind = kind in MESH_KINDS
+        if (mkind, rows) not in dbs:
+            bits = meshed if mkind else single
+            cols = {c: v[:rows] for c, v in data.items()
+                    if c in ("price", "quantity") or (
+                        c == "k" and not mkind) or (
+                        c != "k" and int(c[1:]) in bits)}
+            if table_for is not None:
+                db = table_for(cols)
+            else:
+                db = WarpDB(HostTable.from_dict(cols), device="cuda")
+            if mkind and table_for is None:
+                db = db.distribute(data_mesh(
+                    devices=["cuda:0"] * MESH_SHARDS))
+            elif not mkind:
+                for t in ("rates", "dimk"):
+                    db.register_table(t, HostTable.from_dict(joins[t]))
+            dbs[(mkind, rows)] = db
+        return dbs[(mkind, rows)]
+
+    say(f"tiers: {ROWS} rows, key columns 2^{min(single | meshed, default=0)}"
+        f"..2^{max(single | meshed, default=0)} slots ({', '.join(dists)}), "
+        f"set-up {time.perf_counter() - t0:.3f} s")
+    k2_total = 0
+    res: dict = {}
+    for sweep, kind, sides, sizes, rows_list in sweeps:
+        for rows in rows_list:
+            db = db_for(kind, rows)
+            for size in sizes:
+                ds = dists if kind not in ("join", "joinx") else ("uniform",)
+                for dist in ds:
+                    line = []
+                    for side in sides:
+                        if "K2" in side and size > 16:
+                            continue
+                        wall, dev, k2, mem = tier_point(
+                            db, sweep, kind, side, size, rows, dist, want,
+                            reps, err, root=root)
+                        k2_total += k2
+                        res[(sweep, size, rows, dist, side)] = (wall, dev,
+                                                                mem)
+                        line.append(f"{side} wall {wall!r} ms device "
+                                    f"{dev!r} ms root +{mem} B")
+                    if not full and dist == "uniform":
+                        side = tier_default(sweep, size, rows, data)
+                        _w, _d, k2, _m = tier_point(
+                            db, sweep, kind, side, size, rows, dist, want, 1,
+                            err, force=False, root=root)
+                        k2_total += k2
+                        line.append(f"default takes {side}")
+                    unit = ("%" if kind in ("join", "joinx") else
+                            " (log2 key tuples)" if kind == "mesh2" else
+                            " (log2 slots)")
+                    say(f"tiers {sweep} size {size}{unit} rows {rows} "
+                        f"{dist}: {'; '.join(line)}; agrees with numpy "
+                        f"[{name}]")
+    if full:
+        tier_summary(sweeps, dists, res, name, say)
+    for db in dbs.values():
+        drop_join_memos(db)
+    dbs.clear()
+    torch.cuda.empty_cache()
+    if full and not meshed_only and (select is None
+                                     or "tpch pushdown" in select):
+        tier_tpch(WarpDB, HostTable, name)
+    say(f"tiers phase: {time.perf_counter() - t0!r} s")
+    return k2_total
+
+
+def tier_summary(sweeps, dists, res: dict, name: str, say=log) -> None:
+    """Per sweep and rows (the pushdown's row sweeps: across their
+    rows), each size's wall ratio of the second side to the first on
+    each key mix, and the smallest size from which the second side
+    beats the first on every mix there and at every larger size (engine
+    wall, medians)."""
+    for sweep, kind, sides, sizes, rows_list in sweeps:
+        ds = dists if kind not in ("join", "joinx") else ("uniform",)
+        by_rows = sweep in ("pushdown rows", "pushdown expand")
+        if by_rows:
+            series = [[(f"{r} rows", s, r) for r in rows_list]
+                      for s in sizes]
+        else:
+            series = [[(str(s), s, r) for s in sizes] for r in rows_list]
+        for lo, hi in zip(sides, sides[1:]):
+            for points in series:
+                ratios, wins = [], []
+                for label, size, rows in points:
+                    pair = [(res.get((sweep, size, rows, d, hi)),
+                             res.get((sweep, size, rows, d, lo)))
+                            for d in ds]
+                    if any(a is None or b is None for a, b in pair):
+                        continue
+                    r = [a[0] / b[0] for a, b in pair]
+                    ratios.append(f"{label}: " + "/".join(f"{x:.3f}"
+                                                          for x in r))
+                    # Up the rows the pushdown (the first side) gains.
+                    wins.append((label, all((x > 1.0) if by_rows
+                                            else (x < 1.0) for x in r)))
+                cross = None
+                for label, won in reversed(wins):
+                    if not won:
+                        break
+                    cross = label
+                where = (f"size {points[0][1]}" if by_rows
+                         else f"{points[0][2]} rows")
+                say(f"tiers summary {sweep}: {hi} over {lo} at {where} "
+                    f"(wall ratio {hi}/{lo}, {'/'.join(ds)}): "
+                    f"{', '.join(ratios)}; {lo if by_rows else hi} wins "
+                    f"from {'none' if cross is None else cross} on "
+                    f"[{name}]")
+
+
+def tier_tpch(WarpDB, HostTable, name: str) -> None:
+    """TPC-H's 22 queries at ``TPCH_ROWS`` lineitem rows under each probe
+    floor of the join pushdown, the reference's 4096 rows and 2^25 (the
+    share gate as configured): each result against the suite's oracle,
+    the K5 launches (each compaction gathers by K5) and the median of 5
+    warm runs through ``query_sql_table``, the floors alternating, every
+    memo dropped before each run; then the medians' sums."""
+    from warpdb_tpu_torch.ops import expand
+
+    t0 = time.perf_counter()
+    tpch = load_tpch()
+    tables = tpch.make_tables(TPCH_ROWS, seed=TPCH_SEED)
+    db = WarpDB(HostTable.from_dict(tables["lineitem"]), device="cuda")
+    db.register_table("lineitem", db.table)
+    for tname in ("orders", "customer", "supplier", "nation", "region",
+                  "part", "partsupp"):
+        db.register_table(tname, HostTable.from_dict(tables[tname]))
+    log(f"tiers tpch: {TPCH_ROWS} lineitem rows, set-up "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def run(sql):
+        for t in (db.table, *db._catalog.values()):
+            for memo in JOIN_MEMOS + SUBQUERY_MEMOS:
+                getattr(t, memo, {}).clear()
+        getattr(db, "_cte_memo", {}).clear()
+        out = db.query_sql_table(sql)
+        torch.cuda.synchronize()
+        return out
+
+    sides = ("floor 4096", "floor 2^25")
+    total = {s: 0.0 for s in sides}
+    for q, sql in tpch.QUERIES.items():
+        want = tpch.oracle(tables, q)
+        k5, walls = {}, {s: [] for s in sides}
+        for side in sides:
+            with forced(side):
+                before = expand.sorted_take.launches
+                tpch.check_results(q, run(sql), want)
+                k5[side] = expand.sorted_take.launches - before
+        for i in range(5):
+            for side in (sides if i % 2 == 0 else sides[::-1]):
+                with forced(side):
+                    t1 = time.perf_counter()
+                    run(sql)
+                    walls[side].append((time.perf_counter() - t1) * 1e3)
+        meds = {s: sorted(w)[2] for s, w in walls.items()}
+        for s in sides:
+            total[s] += meds[s]
+        log(f"tiers tpch {q}: " + "; ".join(
+            f"{s} median {meds[s]!r} ms, K5 {k5[s]}" for s in sides)
+            + f"; agrees with the oracle [{name}]")
+    log("tiers tpch: the 22 medians summed: " + "; ".join(
+        f"{s} {total[s]!r} ms" for s in sides) + f" [{name}]")
+
+
+def tier_rank_main(rank: int, world: int, port: int, select) -> int:
+    """One rank of ``--tiers --cards``: joins the NCCL group on
+    cuda:<rank> and runs the mesh sweeps of TIER_SWEEPS over tables of
+    which it holds its ``host_shard_range`` slice, one shard a card;
+    every rank checks every point, the first prints them."""
+    import torch.distributed as dist
+
+    from warpdb_tpu_torch import WarpDB
+    from warpdb_tpu_torch.parallel import multihost
+    from warpdb_tpu_torch.storage import HostTable
+
+    multihost.initialize(f"127.0.0.1:{port}", world, rank,
+                         device=f"cuda:{rank}")
+    try:
+        mesh = multihost.global_mesh()
+
+        def table_for(cols: dict):
+            rows = len(cols["price"])
+            start, end = multihost.host_shard_range(rows)
+            table = multihost.make_global_table(HostTable.from_dict(
+                {c: v[start:end] for c, v in cols.items()}), rows, mesh)
+            return WarpDB.from_device_table(table, mesh=mesh, name="t")
+
+        err = {"group_hist": 0.0}
+        name = card()
+        phase_tiers(WarpDB, HostTable, f"rank {rank}/{world}, one shard a "
+                    f"card, {name}", err, full=True, select=select,
+                    table_for=table_for, root=torch.device(f"cuda:{rank}"),
+                    quiet=rank != 0)
+        log(f"rank {rank} tiers: every point agrees with numpy; K2 against "
+            f"its plain version wherever it ran: max abs err "
+            f"{err['group_hist']!r}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sweep_names(argv: list) -> Optional[list]:
+    """The sweeps ``--sweep=NAME,...`` names (``-`` for a space), or
+    None for all."""
+    picked = [a.split("=", 1)[1] for a in argv if a.startswith("--sweep=")]
+    if not picked:
+        return None
+    names = [n.replace("-", " ") for a in picked for n in a.split(",")]
+    known = {s[0] for s in TIER_SWEEPS} | {"tpch pushdown"}
+    if set(names) - known:
+        raise SystemExit(f"chip_smoke: unknown sweeps "
+                         f"{sorted(set(names) - known)}; known: "
+                         f"{sorted(known)}")
+    return names
+
+
 def main(argv: list) -> int:
     if argv[:1] == ["--rank"] and len(argv) == 4:
         return rank_main(*map(int, argv[1:]))
+    if argv[:1] == ["--tier-rank"] and len(argv) >= 4:
+        return tier_rank_main(*map(int, argv[1:4]), sweep_names(argv[4:]))
     profile = "--profile" in argv
     kernels_only = "--kernels" in argv
     stream_only = "--stream" in argv
     mesh_only = "--mesh" in argv
     cards = "--cards" in argv
-    if set(argv) - {"--profile", "--kernels", "--stream", "--mesh",
-                    "--cards"}:
+    tiers = "--tiers" in argv
+    select = sweep_names(argv)
+    if set(a for a in argv if not a.startswith("--sweep=")) - {
+            "--profile", "--kernels", "--stream", "--mesh", "--cards",
+            "--tiers"} or (select is not None and not tiers):
         print("usage: python3 chip_smoke.py [--profile | --kernels | "
-              "--stream | --mesh | --cards]", file=sys.stderr)
+              "--stream | --mesh | --cards | --tiers [--cards] "
+              "[--sweep=NAME,...]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2743,6 +3533,21 @@ def main(argv: list) -> int:
                "windowed_expand": expand.windowed_expand,
                "uniform_expand": expand.uniform_expand,
                "sorted_take": expand.sorted_take}
+    if tiers and cards:
+        phase_ranks(name, torch.cuda.device_count(),
+                    tiers=[a for a in argv if a.startswith("--sweep=")])
+    elif tiers:
+        terr = {"group_hist": 0.0}
+        phase_tiers(WarpDB, HostTable, name, terr, full=True, select=select)
+        log(f"tiers: K2 against its plain version wherever it ran: max "
+            f"abs err {terr['group_hist']!r}")
+    if tiers:
+        print(name)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if mesh_only or cards:
         with tempfile.TemporaryDirectory(prefix="warpdb_mesh_") as tmp:
             t0 = time.perf_counter()
@@ -2951,6 +3756,9 @@ def main(argv: list) -> int:
     for k, c in mesh_launches.items():
         launches[k] += c
     log(f"mesh phase: {time.perf_counter() - t0!r} s")
+
+    launches["group_hist"] += phase_tiers(WarpDB, HostTable, name, err,
+                                          full=False)
 
     if profile:
         phase_profile(run, queries + join_queries, name)

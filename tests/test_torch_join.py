@@ -108,6 +108,17 @@ def _tables(host_table=HostTable) -> dict:
     ]}
 
 
+@pytest.fixture(autouse=True)
+def reference_pushdown_gate(monkeypatch):
+    """The reference's probe pushdown gate (4096 rows; the H100's floor,
+    ``join_exec.PUSHDOWN_MIN_ROWS``, lies above these tables), so that
+    the join paths here run the pushdown as the reference's do."""
+    from warpdb_tpu_torch.engine import join_exec
+
+    monkeypatch.setattr(join_exec, "PUSHDOWN_MIN_ROWS", 4096)
+    monkeypatch.setattr(join_exec, "PUSHDOWN_MAX_SHARE", 0.5)
+
+
 @pytest.fixture(scope="module")
 def tables():
     return _tables()

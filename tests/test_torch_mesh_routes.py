@@ -186,13 +186,14 @@ def test_full_sorts_keep_row_order_on_ties(ref_mesh, sql):
 # --- "dedupe": DISTINCT and COUNT(DISTINCT) -------------------------------
 
 
-# (statement, K2 launches: once a shard for the 4097..65536-slot item).
+# (statement, K2 launches: once a shard for a stats-bounded integral
+# item of up to 65536 slots, dense or midrange).
 DISTINCT_CASES = [
-    ("SELECT DISTINCT a FROM t", 0),
-    ("SELECT DISTINCT a FROM t WHERE u > 0 ORDER BY a DESC", 0),
+    ("SELECT DISTINCT a FROM t", N_SHARDS),
+    ("SELECT DISTINCT a FROM t WHERE u > 0 ORDER BY a DESC", N_SHARDS),
     ("SELECT DISTINCT k FROM t", N_SHARDS),
     ("SELECT DISTINCT k FROM t WHERE v > 3 ORDER BY k DESC", N_SHARDS),
-    ("SELECT DISTINCT b FROM t ORDER BY b DESC", 0),
+    ("SELECT DISTINCT b FROM t ORDER BY b DESC", N_SHARDS),
     ("SELECT DISTINCT v FROM t", 0),
 ]
 
@@ -201,11 +202,14 @@ DISTINCT_CASES = [
 def test_distinct_dedupes_on_every_shard(ref_mesh, sql, k2):
     t = _table(nan=True)
     ref, port, single = _dbs(t, ref_mesh)
-    run = _Run(None if k2 else ref, port, single, sql)
+    # The reference raises on a DISTINCT of 4097..65536 slots (ROADMAP
+    # queue 3): NumPy stands in for it on ``k``.
+    midrange = sql.split()[2] == "k"
+    run = _Run(None if midrange else ref, port, single, sql)
     assert "sharded_distinct" in run.ops and "mesh_gather" not in run.ops
     assert run.ops.count("K2 group_hist (plain)") == k2
     _exact(run.got[0], run.s[0], run.r[0])
-    if k2:
+    if midrange:
         want = np.unique(t["k"][_mask(t, sql)])
         _exact(run.got[0], want[::-1] if "DESC" in sql else want, want[::-1]
                if "DESC" in sql else want)

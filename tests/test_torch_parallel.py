@@ -37,6 +37,19 @@ N_SHARDS = 8
 MESH = DataMesh(["cpu"] * N_SHARDS)
 
 
+@pytest.fixture(autouse=True)
+def reference_routes(monkeypatch):
+    """The reference's mesh GROUP BY thresholds (the merge up to 4096 key
+    tuples, the combine up to 16384 a shard; the H100's defaults lie
+    above these tables' key spaces), so that the routes here are the
+    reference's."""
+    from warpdb_tpu_torch.config import get_config
+    from warpdb_tpu_torch.parallel import shuffle
+
+    monkeypatch.setattr(get_config(), "distributed_small_keys", 4096)
+    monkeypatch.setattr(shuffle, "COMBINE_CAP", 16384)
+
+
 @pytest.fixture(scope="module")
 def ref_mesh():
     import jax
@@ -258,7 +271,8 @@ def test_query_sql_distributed_small_keys(ref_mesh, big_table):
     ref, port, single = _dbs(big_table, ref_mesh)
     sql = "SELECT SUM(price) FROM t GROUP BY quantity ORDER BY quantity ASC"
     got = port.query_sql(sql)
-    assert _ops() == ["sharded_group"]
+    # Each shard's dense partial table: K2 (SUM only).
+    assert _ops() == ["sharded_group"] + ["K2 group_hist (plain)"] * N_SHARDS
     assert [c[0] for c in last().collectives] == ["all_gather"]
     _sums(got, single.query_sql(sql), ref.query_sql(sql),
           _group_truth(big_table["quantity"], big_table["price"])[1])

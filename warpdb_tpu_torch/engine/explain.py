@@ -117,7 +117,7 @@ def _route_text(route: str, table) -> str:
 
 
 def _join_lines(query: Query, table, catalog: dict) -> list:
-    from .join_exec import _classify_build_conjuncts
+    from .join_exec import PUSHDOWN_MAX_SHARE, _classify_build_conjuncts
 
     lines = []
     mesh = _mesh(table)
@@ -158,8 +158,8 @@ def _join_lines(query: Query, table, catalog: dict) -> list:
             pred = " AND ".join(_fmt(c) for c in conjs)
             lines.append(
                 f"  pushdown: {pred} -> compacts '{rname}' BEFORE the join "
-                "(nonzero positions + K5 sorted_take; skipped at >= 50% "
-                "selectivity)")
+                "(nonzero positions + K5 sorted_take; skipped above "
+                f"{PUSHDOWN_MAX_SHARE:.0%} selectivity)")
         for rname, disjs in implied.items():
             pred = " AND ".join(_fmt(c) for c in disjs)
             lines.append(
@@ -184,7 +184,7 @@ def _group_lines(query: Query, select_items: list, current) -> list:
         shard_tier = tier if len(query.group_by.keys) == 1 else "SORTED"
         lines.append(
             f"    per shard: {shard_tier} partial table"
-            + (f" ({_K2})" if shard_tier == "MIDRANGE" and use_k2 else ""))
+            + (f" ({_K2})" if shard_tier != "SORTED" and use_k2 else ""))
     if route == "merge":
         space = mesh_key_space(current, query.group_by.keys)
         lines.append(
@@ -198,10 +198,11 @@ def _group_lines(query: Query, select_items: list, current) -> list:
             f"a shard holds more than {COMBINE_CAP} key tuples), disjoint "
             "tables gathered in key order")
     elif tier == "DENSE":
+        engine = (f"{_K2} for SUM/COUNT" if use_k2 else
+                  "bincount / index_add_ / scatter_reduce_")
         lines.append(
             f"    strategy: DENSE integer-key aggregation ({slots} slots, "
-            f"stats-bounded{packed}; no sort — one slot table by bincount / "
-            "index_add_ / scatter_reduce_)")
+            f"stats-bounded{packed}; no sort — one slot table by {engine})")
     elif tier == "MIDRANGE":
         engine = (f"{_K2} for SUM/COUNT" if use_k2 else
                   "scatter slot table (index_add_ / scatter_reduce_) for "
@@ -241,8 +242,8 @@ def _group_lines(query: Query, select_items: list, current) -> list:
                 lines.append(
                     f"      {s.agg.name}({_fmt(s.expr)}): "
                     f"[{_route_text(mesh_route('stat', current, agg=s.agg), current)}]")
-    if (tier != "DENSE" and not sorted_aggs and _device_finish(query)
-            and mesh is None):
+    if (tier != "DENSE" and not sorted_aggs and mesh is None
+            and get_config().grouped_device_finish and _device_finish(query)):
         lines.append(
             "    finish: HAVING + ORDER BY + LIMIT on the device when "
             "expressible over the partials — ships O(limit) groups, not "
@@ -347,10 +348,12 @@ def _distinct_line(query: Query, select_items: list, current) -> str:
             return "  distinct: as GROUP BY over the select list (distributed)"
         return (f"  distinct: per shard slot occupancy or sort-unique "
                 f"[{_route_text('dedupe', current)}]")
-    if (select_items and query.group_by is None
-            and slot_tier(current, [select_items[0]], ()) is not None):
+    tier = (slot_tier(current, [select_items[0]], ())
+            if select_items and query.group_by is None else None)
+    if tier is not None:
         return ("  distinct: DENSE/MIDRANGE slot occupancy (stats-bounded "
-                "integral; no sort, O(distinct) transfer)")
+                "integral; no sort, O(distinct) transfer"
+                + (f"; {_K2} counts" if tier[2] else "") + ")")
     return "  distinct: sort-unique on the device (stable torch.sort)"
 
 

@@ -2,13 +2,13 @@
 
 Counterpart of ``warpdb_tpu/engine/group_exec.py`` for the single-table
 slice.  The strategy ladder is the reference's: dense slot table for
-small stats-bounded integral key ranges, midrange slot table (kernel K2
-for SUM/COUNT-only queries) for wider ones, sorted segmented aggregation
-otherwise.  PyTorch has dynamic shapes, so the reference's capacity
-buckets and two-phase counting dispatches are gone; results, including
-row order, are the reference's.  The partial form (keys, counts,
-sum/min/max per value expression) is pulled to the host and finished in
-NumPy.  Per-group statistics that need each group's values (COUNT
+small stats-bounded integral key ranges, midrange slot table for wider
+ones (kernel K2 for SUM/COUNT-only queries at either), sorted segmented
+aggregation otherwise.  PyTorch has dynamic shapes, so the reference's
+capacity buckets and two-phase counting dispatches are gone; results,
+including row order, are the reference's.  The partial form (keys,
+counts, sum/min/max per value expression) is pulled to the host and
+finished in NumPy.  Per-group statistics that need each group's values (COUNT
 DISTINCT, MEDIAN, PERCENTILE, STRING_AGG, APPROX_COUNT_DISTINCT's
 HyperLogLog registers) come from one stable sort by the group keys,
 whose segments line up with the aggregate table row for row.
@@ -327,6 +327,7 @@ def _grouped_partials(query: Query, table, plan: dict,
     device_finish = None
     if (
         final
+        and get_config().grouped_device_finish
         and not limit_pushdown
         and query.limit is not None
         and not query.distinct
@@ -366,7 +367,7 @@ def _distributed_group(query: Query, table, plan: dict,
                        final: bool) -> "_HostGroupResult":
     """Mesh GROUP BY (single or composite keys), the reference's route
     choice (``mesh_route``): the all_gather merge when the stats-bounded
-    key space holds at most ``shuffle.SMALL_KEYS`` tuples, else the
+    key space holds at most ``distributed_small_keys`` tuples, else the
     map-side combine and all_to_all of partials, falling back to the row
     shuffle when a shard holds more than its combine capacity of keys.
     Each shard's partial table takes the single-device slot tier where
@@ -721,24 +722,25 @@ def _slot_table_result(res, kp, df) -> "_HostGroupResult":
 def slot_tier(table, group_keys, need):
     """``(key plan, "DENSE" | "MIDRANGE", K2)`` of the sort-free GROUP BY
     ladder, or None for the sorted tier: dense slot table for small key
-    ranges, midrange for wider ones.  Midrange (reference
-    ``_midrange_group_run``) SUM/COUNT-only queries up to
-    ``group_hist_max_slots`` take kernel K2; K2 adds with atomics, so a
-    non-finite value reaches only its own slot and the reference's
-    finite-values gate (a one-hot product hazard) is dropped.  EXPLAIN
-    names the tier from here."""
+    ranges, midrange for wider ones.  SUM/COUNT-only queries up to
+    ``group_hist_max_slots`` take kernel K2 at either tier (the
+    reference's MXU one-hot served the midrange tier alone; on the H100
+    K2 beats the dense scatter at every dense slot count, ``config.py``);
+    K2 adds with atomics, so a non-finite value reaches only its own
+    slot and the reference's finite-values gate (a one-hot product
+    hazard) is dropped.  EXPLAIN names the tier from here."""
     kp = _dense_key_plan(table, group_keys)
     if kp is None:
         return None
     cfg = get_config()
     num_slots = kp["num_slots"]
+    use_k2 = set(need) <= {"sum"} and num_slots <= cfg.group_hist_max_slots
     if num_slots <= cfg.dense_group_max_slots:
-        return kp, "DENSE", False
+        return kp, "DENSE", use_k2
     if (num_slots > cfg.midrange_group_base_slots
             and num_slots > table.num_rows):
         return None
-    return kp, "MIDRANGE", (set(need) <= {"sum"}
-                            and num_slots <= cfg.group_hist_max_slots)
+    return kp, "MIDRANGE", use_k2
 
 
 def _try_dense_group(query, table, group_keys, vexpr_nodes, vexpr_canons,

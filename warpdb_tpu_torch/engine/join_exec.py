@@ -954,14 +954,34 @@ def _build_prefilter_count(table, where) -> int:
     )
 
 
+# The WHERE pushdown below joins compacts a table only when the filter
+# keeps at most this share of its rows (the compaction would cost more
+# than it saves above), and the probe side only from this many rows on
+# (its count, positions, K5 gather and new table each wait on the card).
+# Pushdown on against off, engine wall, NVIDIA H100 80GB HBM3, 700.00 W,
+# ``chip_smoke.py --tiers``: on e2e_join_filtered's lookup against 32
+# rates, at 2^25 rows 5.98 against 7.82 ms at 50% and 7.23 against 7.71
+# at 75%, where it lost in two runs of three (the reference's 50%
+# stays); it won from 2^24 rows at 1% and 10% (4.27 against 4.63 ms,
+# 4.25 against 4.86) and lost below.  On join_dimk_sum's expanding join
+# it won from 2^24 rows at 1, 10 and 50% (5.27 against 6.05, 4.60
+# against 6.03, 4.98 against 6.71 ms) and lost at 2^22 (4.03 against
+# 3.21 ms at 1%).  TPC-H's 2^22-row probes ran faster without it in
+# each of the seven queries whose plan a 4096-row floor changed (q7
+# 25.02 against 33.15 ms, q20 82.09 against 92.27).  So the floor is
+# 2^24 rows.
+PUSHDOWN_MAX_SHARE = 0.5
+PUSHDOWN_MIN_ROWS = 1 << 24
+
+
 def _filtered_table_for(table, where, base_cols):
     """``table`` compacted to the rows matching ``where``, or None when
-    the filter keeps more than half of them (the compaction would cost
-    more than it saves).  The matching positions come from ``nonzero``
-    (ascending, so row order is kept) and K5 gathers every kept column
-    at them in one launch.  Memoised per table instance."""
+    the filter keeps more than ``PUSHDOWN_MAX_SHARE`` of them.  The
+    matching positions come from ``nonzero`` (ascending, so row order is
+    kept) and K5 gathers every kept column at them in one launch.
+    Memoised per table instance."""
     n_match = _build_prefilter_count(table, where)
-    if n_match * 2 > table.num_rows:
+    if n_match > PUSHDOWN_MAX_SHARE * table.num_rows:
         return None
     mkey = (where.canonical(), tuple(base_cols), udf_mod.registry_version())
     filtered = memo_get(table, "_prefilter_memo", mkey)
@@ -986,14 +1006,15 @@ def _filtered_table_for(table, where, base_cols):
 def _pushdown_join_where(query: Query, table, catalog: Optional[dict]):
     """Probe-side WHERE pushdown: conjuncts that read only probe columns
     compact the probe before the joins (INNER/LEFT/CROSS chains, probe of
-    at least 4096 rows, selectivity under 50%); the rest stays in WHERE.
+    at least ``PUSHDOWN_MIN_ROWS`` rows, selectivity at most
+    ``PUSHDOWN_MAX_SHARE``); the rest stays in WHERE.
     Returns ``(query', probe')``."""
     where = query.where
     if where is None or not query.joins:
         return query, table
     if not get_config().join_filter_pushdown:
         return query, table
-    if table.num_rows < 4096:
+    if table.num_rows < PUSHDOWN_MIN_ROWS:
         return query, table
     for j in query.joins:
         if j.kind not in ("inner", "left", "cross"):

@@ -86,8 +86,8 @@ def expr_range(node: Node, stats: dict) -> Optional[_Interval]:
         return (float(st.min), float(st.max))
     if isinstance(node, NotNull):
         # NULL indicator (COUNT(expr) lowering) is 0/1 by construction;
-        # without this branch grouped COUNT(expr) queries fell off the
-        # stats-gated MXU one-hot group path (ADVICE r4).
+        # without this branch grouped COUNT(expr) queries would fall off
+        # the stats-gated slot tiers (and K2) to the sorted tier.
         return (0.0, 1.0)
     if isinstance(node, CodeMap):
         # The LUT's own extent, valid only when stats prove the source

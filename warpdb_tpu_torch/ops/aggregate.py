@@ -79,18 +79,32 @@ def sorted_first_flags(skeys_s: tuple) -> torch.Tensor:
 
 
 _SUM_BLOCKS = 1024
+# Rows a block adds into its own f32 partial table: the longest f32 add
+# chain a slot takes.
+_SUM_CHAIN = 1 << 17
+# Words the partial tables may take (64 MB of f32).
+_SUM_WORDS = 1 << 24
 
 
 def _scatter_sum(seg, capacity, v):
-    """Per-segment sums of f32 ``v``.  An f32 accumulator that takes
-    millions of adds (a 32-slot GROUP BY over 2^26 joined rows) drifts
-    by tenths of a percent, and its atomics serialise on the card.  So
+    """Per-segment sums of ``v``.  An f32 accumulator that takes millions
+    of adds drifts by tenths of a percent (a 32-slot GROUP BY over 2^26
+    joined rows; the hot slot of a Zipf(1.3) key of 8192 slots at 2^25
+    rows, 0.14% on the H100), and atomics serialise on a hot slot.  So
     when slots average 4096 rows or more, each of up to 1024 blocks of
     rows adds into its own partial table and the partials sum in f64;
-    with fewer rows per slot one f32 table is faster, and accurate
-    enough (H100 timings of both in PERF.md)."""
+    f32 ``v`` also takes blocks of at most ``_SUM_CHAIN`` rows, and one
+    f64 table where those partial tables would take more than
+    ``_SUM_WORDS`` (as exact, but a hot slot's f64 atomics serialise).
+    Float64 ``v`` does not drift and blocks only for the atomics."""
     n, width = v.shape[0], capacity + 1
     blocks = min(_SUM_BLOCKS, n >> 12) if width <= n >> 12 else 1
+    if v.dtype != torch.float64:
+        blocks = max(blocks, -(-n // _SUM_CHAIN))
+        if blocks * width > _SUM_WORDS:
+            out = torch.zeros(width, dtype=torch.float64, device=v.device)
+            out.index_add_(0, seg, v.to(torch.float64))
+            return out[:capacity].to(v.dtype)
     if blocks <= 1:
         out = torch.zeros(width, dtype=v.dtype, device=v.device)
         out.index_add_(0, seg, v)

@@ -73,18 +73,19 @@ def _window_route(query, table) -> str:
 
 def mesh_key_space(table, group_keys) -> Optional[int]:
     """The stats-bounded number of key tuples when it is at most
-    ``shuffle.SMALL_KEYS`` (the mesh GROUP BY then takes the all_gather
-    merge), else None."""
+    ``distributed_small_keys`` (the mesh GROUP BY then takes the
+    all_gather merge), else None."""
+    from ..config import get_config
     from ..engine.optimizer import expr_range
-    from .shuffle import SMALL_KEYS
 
+    small = get_config().distributed_small_keys
     space = 1
     for k in group_keys:
         rng = expr_range(k, table.stats)
         if rng is None or not (np.isfinite(rng[0]) and np.isfinite(rng[1])):
             return None
         space *= max(int(rng[1] - rng[0] + 1), 1)
-        if space > SMALL_KEYS:
+        if space > small:
             return None
     return space
 
@@ -109,7 +110,7 @@ def mesh_route(op: str, table, query=None, join: tuple = (),
       stats-bounded integral key, no ORDER BY) by per-shard slot tables
       and one psum / pmin / pmax; else the gather route;
     * ``"group"``: ``"merge"``, the all_gather merge, when stats bound
-      the key tuples to at most ``shuffle.SMALL_KEYS``; else
+      the key tuples to at most ``distributed_small_keys``; else
       ``"shuffle"``, the map-side combine and all-to-all of partials,
       which falls back to the row shuffle at run time when a shard holds
       more than ``shuffle.COMBINE_CAP`` key tuples;

@@ -42,16 +42,17 @@ from .sharded import (
 )
 
 __all__ = ["hash_dest", "combine_shuffle_grouped", "shuffle_grouped",
-           "COMBINE_CAP", "SMALL_KEYS"]
+           "COMBINE_CAP"]
 
-# The mesh GROUP BY takes the all_gather merge up to this many
-# stats-bounded key tuples and the all-to-all shuffle above (the
-# reference's ``distributed_small_keys``; its crossover on the H100 is
-# not measured).
-SMALL_KEYS = 4096
 # The map-side combine's capacity: distinct key tuples a shard may hold
-# before the row shuffle takes over (the reference's ``local_cap``).
-COMBINE_CAP = 16384
+# before the row shuffle takes over (the reference's ``local_cap``).  At
+# 2^25 rows on four NCCL ranks, one shard a card, the row shuffle wins
+# on neither key mix at once through 2^23 key tuples, sparse composite
+# keys included (dense keys at 2^23: 130.03 / 49.31 ms against the
+# combine's 124.53 / 24.29, uniform / Zipf, engine wall, NVIDIA H100
+# 80GB HBM3, 700.00 W, ``chip_smoke.py --tiers --cards``; four shards
+# of one card the same).
+COMBINE_CAP = 1 << 23
 _M32 = 0xFFFFFFFF
 # Knuth's multiplicative constant, in 16-bit halves so that every
 # product stays inside int64.
@@ -93,14 +94,15 @@ def _exchange_partials(mesh: DataMesh, parts: list, nk: int,
 
 def combine_shuffle_grouped(key_exprs, value_exprs, cond, table,
                             mesh: Optional[DataMesh] = None,
-                            local_cap: int = COMBINE_CAP,
+                            local_cap: Optional[int] = None,
                             need=("sum", "min", "max")
                             ) -> Optional[GroupPartials]:
     """Skew-proof distributed GROUP BY: map-side combine, an all_to_all
     of partial rows, a merge per shard, then the disjoint tables gathered
     to the root in key order.  None when any shard holds more than
-    ``local_cap`` distinct key tuples (the caller falls back to
-    :func:`shuffle_grouped`); every rank decides alike."""
+    ``local_cap`` (default ``COMBINE_CAP``) distinct key tuples (the
+    caller falls back to :func:`shuffle_grouped`); every rank decides
+    alike."""
     key_exprs = list(key_exprs) if isinstance(key_exprs, (list, tuple)) \
         else [key_exprs]
     mesh = _mesh_of(table, mesh)
@@ -110,7 +112,7 @@ def combine_shuffle_grouped(key_exprs, value_exprs, cond, table,
     parts = [local_partials(s, key_exprs, value_exprs, cond, need, tier)
              for s in table.shards]
     sizes = mesh.comm.gather_ints([p.num_groups for p in parts])
-    if max(sizes) > local_cap:
+    if max(sizes) > (COMBINE_CAP if local_cap is None else local_cap):
         return None
     note_operator("combine_shuffle_group", True)
     owned = _exchange_partials(mesh, parts, nk, nv)
